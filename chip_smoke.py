@@ -7,29 +7,39 @@ Phases, each printing JSON lines:
   1. device  — the card, its power limit, the torch/CUDA versions, and the
                build of every kernel from ``src/repro_torch/kernels/csrc``;
   2. kernels — each hand-written kernel against its plain PyTorch version
-               on the card, at the main path's shapes and at edge cases,
-               with kernel, plain and library (SDPA) times;
-  3. serve   — Llama-3-8B at full width (bf16, 32 layers, seeded weights)
-               serves four requests through the port's ServingEngine; every
-               kernel of the path must have launched, the first chunk,
-               a history chunk and a decode tick are held to the plain
-               path on the same weights, and chunk/tick device times plus
-               event-clock TTFT/TBT are printed;
-  4. tokens  — the same engine in fp32 at two layers (full widths): the
-               kernel path and the plain path give identical greedy tokens.
+               on the card, at the main paths' shapes and at edge cases,
+               with kernel, plain and library times;
+  3. serve   — Llama-3-8B (bf16, 32 layers) and then Mamba-2-1.3B (bf16,
+               48 layers), each at full width with seeded weights, serve
+               four requests through the port's ServingEngine; each path
+               must launch exactly its kernels (K1-K3 for Llama, K5 for
+               Mamba-2), the first chunk, a history chunk and a decode
+               tick are held to the plain path on the same weights, and
+               chunk/tick device times plus event-clock TTFT/TBT are
+               printed;
+  4. dense   — Llama-3-8B at full width through CDSP chunked prefill over
+               a dense history (K3), the hand-off to dense decode caches,
+               and 16 dense decode ticks (K4); the first tick is held to
+               the plain path;
+  5. tokens  — fp32 at two layers (full widths): Llama's and Mamba-2's
+               engine give identical greedy tokens on the kernel path and
+               the plain path, and Llama's dense path gives the paged
+               engine's tokens.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-4 run.  ``--only profile`` adds a
+subset; with no arguments phases 1-5 run.  ``--only profile`` adds a
 torch.profiler breakdown of one full-width prefill chunk and one decode
-tick (kernel time by group, and the card's idle share).
+tick of each served model (kernel time by group, and the card's idle
+share).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -46,7 +56,16 @@ SOURCES = {
                             "src/repro/kernels/flash_attention.py:275"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:117"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                     "src/repro/kernels/flash_decode.py:147"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:100"),
 }
+# the kernels each main path must launch (and no other)
+PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
+                         "flash_attention"},
+         "serve_mamba": {"ssd_scan"},
+         "dense": {"flash_attention", "flash_decode"}}
 
 
 class CheckFailed(RuntimeError):
@@ -103,8 +122,10 @@ def time_ms(fn, reps: int = 10, warmup: int = 2):
 
 
 def _times(kernel, plain, library, bms, by) -> dict:
-    (k, ks), (p, ps), (lib, ls) = (time_ms(kernel), time_ms(plain, reps=3),
-                                   time_ms(library))
+    """Kernel, plain and library times; ``library`` None where no single
+    PyTorch call computes the function."""
+    (k, ks), (p, ps) = time_ms(kernel), time_ms(plain, reps=3)
+    lib, ls = time_ms(library) if library is not None else (None, None)
     return dict(ms=k, plain_ms=p, library_ms=lib, bound_ms=bms, bound_by=by,
                 stream_ms={"kernel": ks, "plain": ps, "library": ls})
 
@@ -113,6 +134,14 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     t_b = n_bytes / PEAK_BYTES_S * 1e3
     t_f = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def _free() -> None:
+    """Return a finished phase's memory to the card: the engine holds
+    reference cycles, so its weights outlive ``del`` until a collection."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def max_err(a, b) -> float:
@@ -192,8 +221,11 @@ def phase_kernels(full_shapes: bool = True):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain, paged_flash_prefill,
         paged_flash_prefill_plain)
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_decode import (
-        POS_PAD, paged_flash_decode, paged_flash_decode_plain)
+        POS_PAD, flash_decode, flash_decode_plain, paged_flash_decode,
+        paged_flash_decode_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     # o elementwise: |o - o_plain| <= atol + rtol |o_plain|.  Both sides
@@ -215,27 +247,32 @@ def phase_kernels(full_shapes: bool = True):
                 "o_ratio": close_ratio(o, po, t["atol"], t["rtol"])}
 
     def record(name, case, dtype, errs, main=False, times=None,
-               planted=None):
-        """``planted``: the plain version with V taken one key off, which
-        the same check must reject (it shows the check can see a V-side
-        fault at these shapes)."""
+               planted=None, tol_used=None):
+        """``errs`` holds max abs errors and ``*_ratio`` entries (error
+        over its allowance, <= 1 passes).  ``planted``: {fault: ratio} of
+        plain results with a fault planted (V one key off, ...), which the
+        same check must reject (ratio > 1) to show it can see that fault
+        at these shapes."""
         t = tol[dtype]
-        ok = (errs["o_ratio"] <= 1.0 and errs.get("lse", 0.0) <= t["lse"]
+        ok = (all(v <= 1.0 for k, v in errs.items() if k.endswith("_ratio"))
+              and errs.get("lse", 0.0) <= t["lse"]
               and errs.get("pool", 0.0) == 0.0)
         extra = {}
         if planted is not None:
-            extra["planted_v_one_key_off"] = {"o_ratio": planted,
-                                              "rejected": planted > 1.0}
-            ok = ok and planted > 1.0
+            extra["planted"] = {k: {"ratio": v, "rejected": v > 1.0}
+                                for k, v in planted.items()}
+            ok = ok and all(v > 1.0 for v in planted.values())
         emit(phase="kernels", kernel=name, case=case,
              dtype=str(dtype).split(".")[-1], max_abs_err=errs,
-             tol={"o_atol": t["atol"], "o_rtol": t["rtol"], "lse": t["lse"],
-                  "pool": 0.0}, ok=ok, **extra, **(times or {}))
+             tol=tol_used or {"o_atol": t["atol"], "o_rtol": t["rtol"],
+                              "lse": t["lse"], "pool": 0.0},
+             ok=ok, **extra, **(times or {}))
         if not ok:
             failures.append(f"{name}/{case}")
         if main:
-            rows[name] = dict(max_abs_err=max(errs["o"], errs.get("lse", 0)),
-                              **times)
+            rows[name] = dict(max_abs_err=max(
+                v for k, v in errs.items()
+                if not k.endswith("_ratio") and k != "pool"), **times)
 
     # ---- K3: flash attention over a chunk's own KV
     def k3(case, B, Sq, Sk, H, KVH, D, dtype, causal=True, window=None,
@@ -255,7 +292,8 @@ def phase_kernels(full_shapes: bool = True):
             bad, _ = flash_attention_plain(q, k, v.roll(1, 1), qp, kp,
                                            causal=causal, window=window)
             t = tol[dtype]
-            planted = close_ratio(bad, po, t["atol"], t["rtol"])
+            planted = {"v_one_key_off": close_ratio(bad, po, t["atol"],
+                                                    t["rtol"])}
             pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
             es = torch.finfo(dtype).bits // 8
             nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KVH * D) * es \
@@ -295,7 +333,8 @@ def phase_kernels(full_shapes: bool = True):
             bad, _ = paged_flash_prefill_plain(q, kpool, vbad, table, hl, qp,
                                                window=window)
             t = tol[dtype]
-            planted = close_ratio(bad, po, t["atol"], t["rtol"])
+            planted = {"v_one_key_off": close_ratio(bad, po, t["atol"],
+                                                    t["rtol"])}
             del vbad
             es = torch.finfo(dtype).bits // 8
             nbytes = 2 * B * Sq * H * D * es + 2 * sum(hist) * KVH * D * es \
@@ -366,7 +405,8 @@ def phase_kernels(full_shapes: bool = True):
         o, po, l, pl = o[live_rows], po[live_rows], l[live_rows], pl[live_rows]
         if main:
             t = tol[dtype]
-            planted = close_ratio(bad[live_rows], po, t["atol"], t["rtol"])
+            planted = {"v_one_key_off": close_ratio(
+                bad[live_rows], po, t["atol"], t["rtol"])}
         errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl),
                 "pool": float(not (torch.equal(kpool[live].nan_to_num(7.0),
                                                kp2[live].nan_to_num(7.0))
@@ -394,6 +434,104 @@ def phase_kernels(full_shapes: bool = True):
         record("paged_flash_decode", case, dtype, errs, main, times,
                planted)
 
+    # ---- K4: one query per row over a dense cache
+    def k4(case, lengths, S, H, KVH, D, dtype, window=None, kv_offset=0,
+           main=False):
+        B = len(lengths)
+        q = randn(B, H, D, dtype=dtype)
+        k = randn(B, S, KVH, D, dtype=dtype)
+        v = randn(B, S, KVH, D, dtype=dtype)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = dict(window=window, kv_offset=kv_offset)
+        o, l = flash_decode(q, k, v, ln, **kw)
+        po, pl = flash_decode_plain(q, k, v, ln, **kw)
+        torch.cuda.synchronize()
+        errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl)}
+        times = planted = None
+        if main:
+            t = tol[dtype]
+            bad, _ = flash_decode_plain(q, k, v.roll(1, 1), ln, **kw)
+            planted = {"v_one_key_off": close_ratio(bad, po, t["atol"],
+                                                    t["rtol"])}
+            es = torch.finfo(dtype).bits // 8
+            att = sum(lengths)
+            nbytes = 2 * B * H * D * es + 2 * att * KVH * D * es \
+                + B * H * 4 + B * 4
+            bms, by = bound_ms(nbytes, 4 * H * D * att,
+                               str(dtype).split(".")[-1])
+            mask = (torch.arange(S, device=dev)[None, None]
+                    < ln[:, None, None])
+            times = _times(lambda: flash_decode(q, k, v, ln, **kw),
+                           lambda: flash_decode_plain(q, k, v, ln, **kw),
+                           _sdpa(q[:, None], k, v, mask), bms, by)
+        record("flash_decode", case, dtype, errs, main, times, planted)
+
+    # ---- K5: the Mamba-2 chunked SSD scan
+    # y elementwise as o above (bf16 y is rounded once on both sides); the
+    # state is fp32 on both sides, summed in another order: 1e-4.
+    h_tol = dict(atol=1e-4, rtol=1e-4)
+
+    def k5(case, B, S, H, P, G, N, chunk, dtype, h0=True, via_ops=False,
+           main=False):
+        d_in = H * P
+        # x, B and C as the model hands them over: slices of one fused
+        # projection, strided by its row
+        xbc = randn(B, S, d_in + 2 * G * N, dtype=dtype)
+        x = xbc[..., :d_in].reshape(B, S, H, P)
+        Bm = xbc[..., d_in:d_in + G * N].reshape(B, S, G, N)
+        Cm = xbc[..., d_in + G * N:].reshape(B, S, G, N)
+        # step sizes and decay rates in the model's ranges
+        dt = torch.exp(torch.empty(B, S, H).uniform_(
+            -6.9, -2.3, generator=gen)).to(dev)
+        A = -torch.empty(H).uniform_(1.0, 16.0, generator=gen).to(dev)
+        hz = (0.3 * torch.randn(B, H, P, N, generator=gen)).to(dev) \
+            if h0 else None
+        if via_ops:
+            y, h = ops.ssd(x, dt, A, Bm, Cm, h0=hz, chunk=chunk)
+            py, ph = ops.ssd(x, dt, A, Bm, Cm, h0=hz, chunk=chunk,
+                             impl="ref")
+        else:
+            y, h = ssd_scan(x, dt, A, Bm, Cm, h0=hz, chunk=chunk)
+            py, ph = ssd_scan_plain(x, dt, A, Bm, Cm, h0=hz, chunk=chunk)
+        torch.cuda.synchronize()
+        t = tol[dtype] if dtype == torch.bfloat16 else h_tol
+        errs = {"o": max_err(y, py),
+                "o_ratio": close_ratio(y, py, t["atol"], t["rtol"]),
+                "h": max_err(h, ph),
+                "h_ratio": close_ratio(h, ph, **h_tol)}
+        times = planted = None
+        if main:
+            def rejected(by, bh):
+                return max(close_ratio(by, py, t["atol"], t["rtol"]),
+                           close_ratio(bh, ph, **h_tol))
+            planted = {
+                "x_one_step_off": rejected(*ssd_scan_plain(
+                    x.roll(1, 1), dt, A, Bm, Cm, h0=hz, chunk=chunk)),
+                "h0_wrong_head": rejected(*ssd_scan_plain(
+                    x, dt, A, Bm, Cm, h0=hz.roll(1, 1), chunk=chunk))}
+            es = torch.finfo(dtype).bits // 8
+            # every input read once, every output written once
+            nbytes = (2 * B * S * H * P + 2 * B * S * G * N) * es \
+                + B * S * H * 4 + H * 4 + 2 * B * H * P * N * 4
+            # what the causal chunks need: C.B^T once per group, the
+            # masked product with x, the chunk states and the inter-chunk
+            # output per head
+            flops = 0
+            for c0 in range(0, S, chunk):
+                lc = min(chunk, S - c0)
+                tri = lc * (lc + 1) // 2
+                flops += B * (2 * tri * N * G + 2 * tri * P * H
+                              + 4 * lc * P * N * H)
+            bms, by = bound_ms(nbytes, flops, str(dtype).split(".")[-1])
+            times = _times(
+                lambda: ssd_scan(x, dt, A, Bm, Cm, h0=hz, chunk=chunk),
+                lambda: ssd_scan_plain(x, dt, A, Bm, Cm, h0=hz,
+                                       chunk=chunk),
+                None, bms, by)
+        record("ssd_scan", case, dtype, errs, main, times, planted,
+               tol_used={"y_atol": t["atol"], "y_rtol": t["rtol"],
+                         "h_atol": h_tol["atol"], "h_rtol": h_tol["rtol"]})
+
     bf, f32 = torch.bfloat16, torch.float32
     # main path shapes: Llama-3-8B (H 32, KVH 8, D 128), page 64; the smoke
     # trace's longest prompt (6144) runs as two 3072-token chunks, and the
@@ -402,6 +540,14 @@ def phase_kernels(full_shapes: bool = True):
         k3("main", 1, 3072, 3072, 32, 8, 128, bf, main=True)
         k2("main", 1, 3072, [3072], 32, 8, 128, 64, bf, main=True)
         k1("main", [512, 2048, 4096, 6144], 32, 8, 128, 64, bf, main=True)
+        # the dense path's decode batch: the smoke prompts in a dense cache
+        k4("main", [512, 2048, 4096, 6144], 6144, 32, 8, 128, bf,
+           main=True)
+        # Mamba-2-1.3B: a 3072-token CDSP chunk with the state handed in
+        k5("main", 1, 3072, 64, 64, 1, 128, 256, bf, main=True)
+        k5("ragged_S_via_ops", 1, 1000, 64, 64, 1, 128, 256, bf,
+           via_ops=True)
+        k5("main_fp32", 1, 1024, 64, 64, 1, 128, 256, f32)
         k3("main_fp32", 1, 1024, 1024, 32, 8, 128, f32)
         k2("main_fp32", 1, 512, [1536], 32, 8, 128, 64, f32)
         k1("main_fp32", [100, 700, 1500, 3000], 32, 8, 128, 64, f32)
@@ -421,6 +567,16 @@ def phase_kernels(full_shapes: bool = True):
         k1("page32_g4_no_append", [64, 0, 1], 8, 2, 128, 32, dt,
            append=False)
         k1("page64_g8_window", [300, 7], 16, 2, 128, 64, dt, window=100)
+        k4("ragged_S_g4_zero_row", [77, 0, 30], 77, 8, 2, 128, dt)
+        k4("window_offset_d32_g1", [300, 129], 300, 4, 4, 32, dt,
+           window=50, kv_offset=20)
+        k4("g8_short", [1, 5], 8, 16, 2, 128, dt)
+        k5("S_below_chunk_no_h0", 1, 100, 8, 64, 1, 128, 256, dt,
+           h0=False)
+        k5("groups4_ragged", 2, 300, 8, 64, 4, 128, 128, dt, via_ops=True)
+        k5("p32_n64", 2, 200, 4, 32, 2, 64, 64, dt)
+        k5("p16_n32_chunk32", 1, 70, 4, 16, 1, 32, 32, dt)
+        k5("p16_n16_chunk1", 1, 9, 2, 16, 1, 16, 1, dt)
     emit(phase="kernels", failures=failures)
     check(not failures, f"kernels disagree with their plain versions: "
           f"{failures}")
@@ -456,10 +612,14 @@ def _two_chunk_policy():
 def _counters():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      paged_flash_prefill)
-    from repro_torch.kernels.flash_decode import paged_flash_decode
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"paged_flash_decode": paged_flash_decode,
             "paged_flash_prefill": paged_flash_prefill,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_decode": flash_decode,
+            "ssd_scan": ssd_scan}
 
 
 def _reset_counts():
@@ -469,6 +629,15 @@ def _reset_counts():
 
 def _read_counts():
     return {k: f.launches for k, f in _counters().items()}
+
+
+def _check_launches(counts: dict, path: str) -> None:
+    """A main path launched every kernel it runs, and no other."""
+    want = PATHS[path]
+    check(all(counts[k] > 0 for k in want),
+          f"{path}: a kernel of the path was not launched: {counts}")
+    check(not any(c for k, c in counts.items() if k not in want),
+          f"{path}: a kernel outside the path was launched: {counts}")
 
 
 def _serve(cfg, params, prompts, ctx, output_len, **kw):
@@ -485,8 +654,9 @@ def _hist(eng, name):
 
 def _replay(cfg, params, ctx, prompt, token):
     """Request ``prompt`` through the engine's own functions on a fresh
-    pool: chunk 1 (K3), chunk 2 over its paged history (K2 + K3), then one
-    decode tick on ``token`` (K1).  Returns the three logits rows."""
+    pool: chunk 1, chunk 2 over its history (attention: the pages, K2 +
+    K3; Mamba-2: the handed-over SSD state and conv window, K5), then one
+    decode tick on ``token``.  Returns the three logits rows."""
     import torch
     from repro_torch.core.cdsp import prefill_chunk_paged
     from repro_torch.models.transformer import forward
@@ -501,17 +671,22 @@ def _replay(cfg, params, ctx, prompt, token):
     toks = torch.as_tensor(prompt, device=dev)[None]
     pos = torch.arange(L, dtype=torch.int32, device=dev)[None]
     out = []
+    aux = None
     for off, ln in ((0, l0), (l0, L - l0)):
-        lg, nc, _ = prefill_chunk_paged(
+        lg, nc, aux = prefill_chunk_paged(
             params, cfg, ctx, toks[:, off:off + ln], pos[:, off:off + ln],
-            kv.pools, blocks[:-(-off // page)], off)
+            kv.pools, blocks[:-(-off // page)], off, aux)
         kv.write_chunk(blocks, nc, pos[:, off:off + ln])
         out.append(lg[0, 0, :cfg.vocab_size].float())
         del nc
     bt = torch.as_tensor(blocks, dtype=torch.int32, device=dev)[None]
-    caches = {"0": {"self": {
-        "k": kv.pools["0"]["k"], "v": kv.pools["0"]["v"],
-        "block_table": bt[None].expand(cfg.n_blocks, 1, n)}}}
+    caches = {}
+    for i, spec in enumerate(cfg.pattern):
+        key = str(i)
+        caches[key] = {"self": (
+            {"k": kv.pools[key]["k"], "v": kv.pools[key]["v"],
+             "block_table": bt[None].expand(cfg.n_blocks, 1, n)}
+            if spec.mixer == "attn" else aux[key]["self"])}
     clen = torch.tensor([L], dtype=torch.int32, device=dev)
     lg, _, _ = forward(params, cfg, ctx,
                        torch.tensor([[token]], device=dev), clen[:, None],
@@ -521,14 +696,37 @@ def _replay(cfg, params, ctx, prompt, token):
     return out
 
 
-def phase_serve():
+# bf16 logits against the plain path: the two paths round at different
+# places through 32 (Llama) or 48 (Mamba-2) layers, so logits drift by a
+# few hundredths; hold the worst element to 0.25 and the direction of the
+# whole row to cosine >= 0.999
+LOGIT_TOL = {"max_abs_err": 0.25, "cos": 0.999}
+
+
+def _logits_vs_plain(phase, names, got, want):
+    import torch
+    res = {}
+    for name, a, b in zip(names, got, want):
+        err = float((a - b).abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        res[name] = {"max_abs_err": err, "cos": cos,
+                     "ok": (err <= LOGIT_TOL["max_abs_err"]
+                            and cos >= LOGIT_TOL["cos"])}
+    emit(phase=phase, logits_vs_plain=res, tol=LOGIT_TOL)
+    check(all(r["ok"] for r in res.values()),
+          f"{phase}: kernel-path logits disagree with the plain path")
+
+
+def _serve_path(arch: str, path: str) -> dict:
+    """Serve the smoke trace on ``arch`` at full width; returns the
+    launch counts of the run."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.params import count_params, init_params
     from repro_torch.models.sharding import make_context
     from repro_torch.serving.simulator import summarize
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
     ctx = make_context("cuda")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=ctx.device)
@@ -541,6 +739,7 @@ def phase_serve():
     prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
                for L in lens]
     out_len = 16
+    _free()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -551,19 +750,20 @@ def phase_serve():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts()
-    emit(phase="serve", launches=counts, wall_s=round(wall, 2),
+    emit(phase="serve", model=cfg.name, launches=counts,
+         wall_s=round(wall, 2),
          peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched on the main path")
+    _check_launches(counts, path)
     plans = {rid: r.chunk_plan for rid, r in eng.reqs.items()}
-    check(any(len(p) >= 2 for p in plans.values()),
-          "no request ran two or more chunks")
+    check(all(len(p) == 2 for p in plans.values()),
+          f"{cfg.name}: every request must run two chunks: {plans}")
     for rid, toks in eng.outputs.items():
         check(len(toks) >= out_len and all(0 <= t < cfg.vocab_size
                                            for t in toks),
-              f"request {rid}: bad output {toks}")
+              f"{cfg.name} request {rid}: bad output {toks}")
     s = summarize(eng.reqs)
-    emit(phase="serve", plans={str(k): v for k, v in plans.items()},
+    emit(phase="serve", model=cfg.name,
+         plans={str(k): v for k, v in plans.items()},
          outputs={str(k): v for k, v in eng.outputs.items()},
          chunk_device_us=_hist(eng, "op_device_us/prefill_chunk"),
          tick_device_us=_hist(eng, "op_device_us/decode_tick"),
@@ -572,68 +772,171 @@ def phase_serve():
          tbt_p50_s=s["tbt_p50"], clock="event")
     first_tokens = {rid: toks[0] for rid, toks in eng.outputs.items()}
     del eng
-    torch.cuda.empty_cache()
+    _free()
 
     # the plain path on the same weights, replaying the longest request
     rid = len(lens) - 1
     got = _replay(cfg, params, ctx, prompts[rid], first_tokens[rid])
     check(int(torch.argmax(got[1])) == first_tokens[rid],
-          "replayed prefill disagrees with the engine's first token")
+          f"{cfg.name}: replayed prefill disagrees with the engine's first "
+          "token")
     want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid],
                    first_tokens[rid])
-    # bf16 through 32 layers: the two paths round at different places, so
-    # logits drift by a few hundredths; hold the worst element to 0.25 and
-    # the direction of the whole row to cosine >= 0.999
-    res = {}
-    for name, a, b in zip(("chunk1", "chunk2_history", "decode_tick"),
-                          got, want):
-        err = float((a - b).abs().max())
-        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
-        res[name] = {"max_abs_err": err, "cos": cos,
-                     "ok": err <= 0.25 and cos >= 0.999}
-    emit(phase="serve", logits_vs_plain=res, tol={"max_abs_err": 0.25,
-                                                  "cos": 0.999})
-    check(all(r["ok"] for r in res.values()),
-          "kernel-path logits disagree with the plain path")
+    _logits_vs_plain("serve", ("chunk1", "chunk2_history", "decode_tick"),
+                     got, want)
     del params
-    torch.cuda.empty_cache()
+    _free()
     return counts
 
 
+def phase_serve() -> dict:
+    return {"serve_llama": _serve_path("llama3-8b", "serve_llama"),
+            "serve_mamba": _serve_path("mamba2-1.3b", "serve_mamba")}
+
+
 # ---------------------------------------------------------------- phase 4
-def phase_tokens():
+def _dense_run(cfg, params, ctx, prompt, chunks, ticks, force=None):
+    """CDSP chunked prefill over a dense history, the hand-off to dense
+    decode caches, then ``ticks`` dense decode ticks, greedy (or on the
+    tokens ``force``).  Returns (logits rows: prefill then each tick,
+    tokens, prefill device ms, tick device ms)."""
+    import torch
+    from repro_torch.core.cdsp import (chunked_prefill,
+                                       history_to_decode_caches)
+    from repro_torch.models.transformer import forward
+    dev = ctx.device
+    L = len(prompt)
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    logits, hist = chunked_prefill(params, cfg, ctx, toks, pos, chunks)
+    caches, clen = history_to_decode_caches(cfg, hist, max_seq=L + ticks)
+    ev[1].record()
+    del hist
+    rows = [logits[0, 0, :cfg.vocab_size].float()]
+    out = [int(torch.argmax(rows[0])) if force is None else force[0]]
+    tick_ms = []
+    for i in range(ticks):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        lg, _, caches = forward(params, cfg, ctx,
+                                torch.tensor([[out[-1]]], device=dev),
+                                clen[:, None], "decode", caches=caches,
+                                cache_len=clen)
+        b.record()
+        clen = clen + 1
+        rows.append(lg[0, 0, :cfg.vocab_size].float())
+        out.append(int(torch.argmax(rows[-1])) if force is None
+                   else force[i + 1])
+        tick_ms.append((a, b))
+    torch.cuda.synchronize()
+    return (rows, out, ev[0].elapsed_time(ev[1]),
+            [a.elapsed_time(b) for a, b in tick_ms])
+
+
+def phase_dense() -> dict:
+    """Llama-3-8B at full width: a 6144-token prompt prefilled as two CDSP
+    chunks over a dense history (K3 over the concatenated KV), handed to
+    dense decode caches, then 16 dense decode ticks (K4)."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.params import init_params
     from repro_torch.models.sharding import make_context
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2,
-                              dtype="float32")
+    cfg = get_config("llama3-8b")
     ctx = make_context("cuda")
-    params = init_params(cfg, seed=1, device=ctx.device)
-    rng = np.random.default_rng(1)
+    params = init_params(cfg, seed=0, device=ctx.device)
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, 6144).astype(np.int32)
+    ticks = 16
+    chunks = [len(prompt) // 2, len(prompt) - len(prompt) // 2]
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rows, toks, pre_ms, tick_ms = _dense_run(cfg, params, ctx, prompt,
+                                             chunks, ticks)
+    counts = _read_counts()
+    emit(phase="dense", model=cfg.name, chunks=chunks, ticks=ticks,
+         launches=counts, prefill_device_ms=pre_ms,
+         tick_device_ms={"mean": sum(tick_ms) / len(tick_ms),
+                         "min": min(tick_ms), "max": max(tick_ms)},
+         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
+         tokens=toks, clock="cuda events around each call")
+    _check_launches(counts, "dense")
+    check(counts["flash_decode"] == cfg.n_layers * ticks,
+          f"dense: K4 launched {counts['flash_decode']} times, want "
+          f"{cfg.n_layers * ticks}")
+    want, _, _, _ = _dense_run(cfg, params, ctx.with_(impl="ref"), prompt,
+                               chunks, 1, force=toks[:2])
+    _logits_vs_plain("dense", ("prefill_chunk2", "decode_tick1"), rows[:2],
+                     want)
+    del params
+    _free()
+    return counts
+
+
+# ---------------------------------------------------------------- phase 5
+def _tokens_engine(arch: str, path: str, seed: int, lens, out_len: int):
+    """fp32 at two layers and full widths: the engine's greedy tokens on
+    the kernel path and on the plain path.  Returns (cfg, params, ctx,
+    prompts, kernel-path outputs)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import make_context
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    ctx = make_context("cuda")
+    params = init_params(cfg, seed=seed, device=ctx.device)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
-               for L in (300, 1000, 2500, 4000)]
+               for L in lens]
     outs = {}
     for impl in (None, "ref"):
         _reset_counts()
-        eng = _serve(cfg, params, prompts, ctx.with_(impl=impl), 8,
+        eng = _serve(cfg, params, prompts, ctx.with_(impl=impl), out_len,
                      max_seq=4096, prefill_pool_blocks=160,
                      host_pool_blocks=64)
         counts = _read_counts()
         outs[impl or "cuda"] = dict(eng.outputs)
-        emit(phase="tokens", impl=impl or "cuda", launches=counts,
+        emit(phase="tokens", model=cfg.name, impl=impl or "cuda",
+             launches=counts,
              outputs={str(k): v for k, v in eng.outputs.items()})
         if impl is None:
-            check(all(c > 0 for c in counts.values()),
-                  f"fp32 kernel path skipped a kernel: {counts}")
+            _check_launches(counts, path)
         else:
             check(not any(counts.values()),
-                  f"plain path launched kernels: {counts}")
+                  f"{cfg.name}: plain path launched kernels: {counts}")
         del eng
+        _free()
     same = outs["cuda"] == outs["ref"]
-    emit(phase="tokens", identical=same)
-    check(same, "fp32 greedy tokens differ between kernel and plain paths")
+    emit(phase="tokens", model=cfg.name, identical=same)
+    check(same, f"{cfg.name}: fp32 greedy tokens differ between kernel and "
+          "plain paths")
+    return cfg, params, ctx, prompts, outs["cuda"]
+
+
+def phase_tokens():
+    cfg, params, ctx, prompts, outs = _tokens_engine(
+        "llama3-8b", "serve_llama", 1, (300, 1000, 2500, 4000), 8)
+    # Llama's dense path (K3 + K4) on one of the same prompts gives the
+    # paged engine's tokens (K1-K3)
+    rid = 2
+    L = len(prompts[rid])
+    _reset_counts()
+    _, dense, _, _ = _dense_run(cfg, params, ctx, prompts[rid],
+                                [L // 2, L - L // 2], len(outs[rid]) - 1)
+    counts = _read_counts()
+    _check_launches(counts, "dense")
+    emit(phase="tokens", model=cfg.name, path="dense", launches=counts,
+         dense=dense, paged=outs[rid], identical=dense == outs[rid])
+    check(dense == outs[rid], "fp32 dense-path tokens differ from the paged "
+          "engine's")
+    del params
+    _free()
+    _tokens_engine("mamba2-1.3b", "serve_mamba", 2, (300, 1000, 2500, 4000),
+                   8)
 
 
 # ---------------------------------------------------------- profile (opt-in)
@@ -652,6 +955,7 @@ def _kernel_groups(prof) -> dict:
              and "true" in name else
              "K3 flash_attention" if "attn_kernel" in name else
              "K1 paged_flash_decode" if "decode_" in name else
+             "K5 ssd_scan" if "ssd_" in name else
              "gemm" if any(t in name.lower() for t in
                            ("gemm", "nvjet", "sm90_", "cutlass"))
              else "other")
@@ -662,49 +966,10 @@ def _kernel_groups(prof) -> dict:
     return groups, dict(top)
 
 
-def phase_profile():
-    """Where a prefill chunk's and a decode tick's time goes at full width:
-    kernel time by group (torch.profiler) against the host-clock window,
-    whose difference is the card's idle share."""
+def _profile(model: str, windows) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core.cdsp import prefill_chunk_paged
-    from repro_torch.models.params import init_params
-    from repro_torch.models.sharding import make_context
-    from repro_torch.models.transformer import forward
-    from repro_torch.serving.cache_manager import PagedKVCache
-    cfg = get_config("llama3-8b")
-    ctx = make_context("cuda")
-    params = init_params(cfg, seed=0, device=ctx.device)
-    dev, page = ctx.device, 64
-    lens = [512, 2048, 4096, 6144]
-    npg = -(-(max(lens) + 16) // page)
-    kv = PagedKVCache(cfg, len(lens) * npg, page, device=dev)
-    for p in ("k", "v"):
-        kv.pools["0"][p].normal_()
-    table = torch.arange(len(lens) * npg, dtype=torch.int32,
-                         device=dev).reshape(len(lens), npg)
-    toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
-    pos = torch.arange(3072, 6144, dtype=torch.int32, device=dev)[None]
-
-    def chunk():      # the second half of the 6144 prompt, 3072 of history
-        return prefill_chunk_paged(params, cfg, ctx, toks, pos, kv.pools,
-                                   table[3, :3072 // page].tolist(), 3072)
-
-    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
-    tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
-    caches = {"0": {"self": {"k": kv.pools["0"]["k"],
-                             "v": kv.pools["0"]["v"],
-                             "block_table": table[None].expand(
-                                 cfg.n_blocks, len(lens), npg)}}}
-
-    def tick():       # the smoke batch's decode tick (one fused step)
-        return forward(params, cfg, ctx, tick_toks, clen[:, None], "decode",
-                       caches=caches, cache_len=clen)
-
-    for name, fn, reps in (("prefill_chunk_3072_hist_3072", chunk, 2),
-                           ("decode_tick_b4", tick, 8)):
+    for name, fn, reps in windows:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -717,19 +982,85 @@ def phase_profile():
         groups, others = _kernel_groups(prof)
         groups = {k: v / reps for k, v in groups.items()}
         busy = sum(groups.values())
-        emit(phase="profile", window=name, wall_ms=wall,
+        emit(phase="profile", model=model, window=name, wall_ms=wall,
              kernel_ms=groups, busy_ms=busy,
              idle_share=(1.0 - busy / wall) if busy else None,
              top_other_ms={k: v / reps for k, v in others.items()})
 
 
+def phase_profile():
+    """Where a prefill chunk's and a decode tick's time goes at full width,
+    for each served model: kernel time by group (torch.profiler) against
+    the host-clock window, whose difference is the card's idle share."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.cdsp import prefill_chunk_paged
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import make_context
+    from repro_torch.models.transformer import forward
+    from repro_torch.serving.cache_manager import PagedKVCache
+    ctx = make_context("cuda")
+    dev, page = ctx.device, 64
+    lens = [512, 2048, 4096, 6144]
+
+    cfg = get_config("llama3-8b")
+    params = init_params(cfg, seed=0, device=dev)
+    npg = -(-(max(lens) + 16) // page)
+    kv = PagedKVCache(cfg, len(lens) * npg, page, device=dev)
+    for p in ("k", "v"):
+        kv.pools["0"][p].normal_()
+    table = torch.arange(len(lens) * npg, dtype=torch.int32,
+                         device=dev).reshape(len(lens), npg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
+    pos = torch.arange(3072, 6144, dtype=torch.int32, device=dev)[None]
+    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
+    caches = {"0": {"self": {"k": kv.pools["0"]["k"],
+                             "v": kv.pools["0"]["v"],
+                             "block_table": table[None].expand(
+                                 cfg.n_blocks, len(lens), npg)}}}
+    # the second half of the 6144 prompt over 3072 history tokens, and the
+    # smoke batch's decode tick (one fused step)
+    _profile(cfg.name, (
+        ("prefill_chunk_3072_hist_3072",
+         lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos, kv.pools,
+                                     table[3, :3072 // page].tolist(),
+                                     3072), 2),
+        ("decode_tick_b4",
+         lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
+                         "decode", caches=caches, cache_len=clen), 8)))
+    del params, kv, caches
+    _free()
+
+    cfg = get_config("mamba2-1.3b")
+    params = init_params(cfg, seed=0, device=dev)
+    none = PagedKVCache(cfg, 1, page, device=dev).pools      # no attention
+    first = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
+    _, _, aux = prefill_chunk_paged(
+        params, cfg, ctx, first,
+        torch.arange(3072, dtype=torch.int32, device=dev)[None], none, [], 0)
+    toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
+    tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
+    caches = {"0": {"self": {k: torch.cat([v] * len(lens), dim=1)
+                             for k, v in aux["0"]["self"].items()}}}
+    # the second chunk of the 6144 prompt with the first chunk's SSD state
+    # and conv window handed in, and a decode tick of four rows
+    _profile(cfg.name, (
+        ("prefill_chunk_3072_after_3072",
+         lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos, none,
+                                     [], 3072, aux), 2),
+        ("decode_tick_b4",
+         lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
+                         "decode", caches=caches, cache_len=clen), 8)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
-                    choices=["device", "kernels", "serve", "tokens",
+                    choices=["device", "kernels", "serve", "dense", "tokens",
                              "profile"])
     args = ap.parse_args(argv)
-    phases = args.only or ["device", "kernels", "serve", "tokens"]
+    phases = args.only or ["device", "kernels", "serve", "dense", "tokens"]
 
     import torch
     if not torch.cuda.is_available():
@@ -742,7 +1073,9 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     rows = phase_kernels() if "kernels" in phases else {}
-    counts = phase_serve() if "serve" in phases else {}
+    by_path = phase_serve() if "serve" in phases else {}
+    if "dense" in phases:
+        by_path["dense"] = phase_dense()
     if "tokens" in phases:
         phase_tokens()
     if "profile" in phases:
@@ -750,8 +1083,10 @@ def main(argv=None) -> int:
     table = []
     for name, (src, repl) in SOURCES.items():
         r = rows.get(name, {})
+        paths = {p: c[name] for p, c in by_path.items() if name in PATHS[p]}
         table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": repl, "launches": counts.get(name, 0),
+                      "replaces": repl, "launches": sum(paths.values()),
+                      "launches_by_path": paths,
                       "max_abs_err": r.get("max_abs_err"),
                       "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                       "bound_ms": r.get("bound_ms"),

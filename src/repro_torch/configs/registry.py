@@ -9,6 +9,7 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "yi-9b": "yi_9b",
     "llama3-8b": "llama3_8b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 

@@ -2,8 +2,9 @@
 
 ``chunked_prefill`` runs a request's prompt chunk by chunk: chunk *i*
 attends to the KV of chunks < i (cross-chunk causal masking is automatic
-via position arrays) plus its own causal self-attention, and equals
-monolithic prefill (tests/test_torch_cdsp.py).
+via position arrays) plus its own causal self-attention, SSD state and
+conv windows are handed from chunk to chunk, and it equals monolithic
+prefill (tests/test_torch_cdsp.py).
 
 The serving engine keeps a chunk's history in *paged* pools
 (``prefill_chunk_paged``): the chunk reads earlier chunks' KV straight out
@@ -11,8 +12,8 @@ of the pages through ``pages_history_view`` and the engine scatters the
 chunk's own KV into pages afterwards.  The dense ``prefill_chunk`` /
 ``_append_history`` path stays as the library oracle.
 
-Only the single-device dense-decoder path is ported: SSM state, cross
-attention and sharded pools belong to later slices.
+Only the single-device path is ported: cross attention and sharded pools
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -28,12 +29,16 @@ from repro_torch.models.transformer import forward
 
 def _append_history(cfg: ModelConfig, history: Optional[dict],
                     new_caches: dict, positions: torch.Tensor) -> dict:
-    """Fold a chunk's produced caches into the running dense history."""
+    """Fold a chunk's produced caches into the running dense history:
+    attention KV is concatenated, SSD state and conv window replaced."""
     pos2d = positions[0] if positions.dim() == 3 else positions
     out = {}
     for i, spec in enumerate(cfg.pattern):
         key = str(i)
         nc = new_caches[key]["self"]
+        if spec.mixer != "attn":
+            out[key] = {"self": nc}
+            continue
         prev = None if history is None else history.get(key, {}).get("self")
         nb, B_, L = nc["k"].shape[:3]
         pos_b = pos2d[None].expand(nb, B_, L)
@@ -62,9 +67,10 @@ def aux_history_from_caches(cfg: ModelConfig, prev_aux: Optional[dict],
                             new_caches: dict) -> Optional[dict]:
     """Fold one chunk's non-attention state into the running aux history.
 
-    Attention KV lives in pages; only O(1)-in-sequence state (SSD states,
-    conv windows, cross KV) would ride here.  The dense decoder has none,
-    so this returns None for it, as the reference does."""
+    Attention KV lives in pages; only O(1)-in-sequence state rides here:
+    a Mamba layer's SSD state and conv window, replaced by each chunk's
+    (and cross KV, which no ported model has).  A model with attention
+    layers only has none, and gets None, as in the reference."""
     out: dict = {}
     for i, spec in enumerate(cfg.pattern):
         key = str(i)
@@ -169,11 +175,16 @@ def chunked_prefill(params: dict, cfg: ModelConfig, ctx: ExecContext,
 def history_to_decode_caches(cfg: ModelConfig, history: dict,
                              max_seq: int) -> Tuple[dict, torch.Tensor]:
     """Dense history -> dense decode caches in natural order, padded to
-    ``max_seq`` (the prefill->decode KV hand-off of the dense oracle)."""
+    ``max_seq`` (the prefill->decode KV hand-off of the dense oracle).
+    SSM layers hand their state over as it is; a model with no attention
+    layer gets ``cache_len`` 0, as in the reference."""
     caches = {}
     cache_len = None
     for i, spec in enumerate(cfg.pattern):
         ent = history[str(i)]["self"]
+        if spec.mixer != "attn":
+            caches[str(i)] = {"self": ent}
+            continue
         k, v, pos = ent["k"], ent["v"], ent["pos"][0]      # pos: (B, C)
         order = torch.argsort(pos, dim=1)                  # (B, C)
         idx = order[None, :, :, None, None].expand_as(k)
@@ -188,4 +199,8 @@ def history_to_decode_caches(cfg: ModelConfig, history: dict,
         caches[str(i)] = {"self": {"k": k, "v": v}}
         cache_len = torch.full((k.shape[1],), C, dtype=torch.int32,
                                device=k.device)
+    if cache_len is None:                                  # pure SSM
+        ssm = history["0"]["self"]["ssm"]
+        cache_len = torch.zeros((ssm.shape[1],), dtype=torch.int32,
+                                device=ssm.device)
     return caches, cache_len

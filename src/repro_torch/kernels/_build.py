@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention", "paged_decode")
+SOURCES = ("flash_attention", "paged_decode", "ssd_scan")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,17 @@
-// Paged flash decode for Hopper, with the fused append of the decode tick.
+// Flash decode for Hopper: paged, with the fused append of the decode tick
+// (K1), and over a dense cache (K4).
 //
 // Replaces (TPU, Pallas):
 //   K1  src/repro/kernels/flash_decode.py  paged_flash_decode /
 //       _paged_decode_kernel, reached through paged_append_attend
 //       (append: fused_append_attend)
+//   K4  src/repro/kernels/flash_decode.py  flash_decode / _decode_kernel
+//
+// Dense mode (K4, table == null): the cache is (B, S, KVH, D) and key f of
+// row b sits at position kv_offset + f, valid while pos < length and, with
+// a window, pos >= length - window.  The row's S keys are cut into
+// virtual pages of `page` keys so that the split and merge below serve
+// both layouts unchanged; the last page is cut at S, so any S works.
 //
 // One query token per row attends to a paged pool (P, page, KVH, D)
 // through a block table (B, npg).  Key t of table column j sits at logical
@@ -49,6 +57,7 @@ struct DecodeParams {
   const void* v_new;
   const int* append_page;     // (B,)
   const int* append_slot;     // (B,)
+  int S, kv_offset;           // dense mode: keys per row, first position
   float* part_m;              // (B, H, splits)
   float* part_l;
   float* part_acc;            // (B, H, splits, D)
@@ -58,7 +67,7 @@ struct DecodeParams {
   float scale;
 };
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool DENSE>
 __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeParams p) {
   constexpr int E = D / 32;
   __shared__ float sm_m[NW][G], sm_l[NW][G];
@@ -108,7 +117,8 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeParams p) {
   }
 
   const int f_begin = split * p.pages_per_split * p.page;
-  const int f_end = min(p.npg, (split + 1) * p.pages_per_split) * p.page;
+  int f_end = min(p.npg, (split + 1) * p.pages_per_split) * p.page;
+  if (DENSE) f_end = min(f_end, p.S);
   for (int f0 = f_begin + warp * U; f0 < f_end; f0 += NW * U) {
     float kr[U][E], vr[U][E];
     bool ok[U];
@@ -116,7 +126,15 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeParams p) {
     for (int u = 0; u < U; ++u) {
       const int f = f0 + u;
       ok[u] = false;
-      if (f < f_end) {
+      if (DENSE && f < f_end) {
+        const int pos = p.kv_offset + f;
+        ok[u] = pos < length && pos >= lo;
+        if (ok[u]) {
+          const size_t off = ((size_t(b) * p.S + f) * p.KVH + kvh) * D + lane * E;
+          load_vec<T, E>(Kp + off, kr[u]);
+          load_vec<T, E>(Vp + off, vr[u]);
+        }
+      } else if (f < f_end) {
         const int j = f / p.page, t = f - j * p.page;
         const int base = p.page_pos ? p.page_pos[size_t(b) * p.npg + j]
                                     : j * p.page;
@@ -207,7 +225,11 @@ __global__ void __launch_bounds__(D) decode_merge_kernel(DecodeParams p) {
 template <typename T, int D, int G>
 int launch(const DecodeParams& p, cudaStream_t stream) {
   dim3 grid(p.splits, p.KVH, p.B);
-  decode_split_kernel<T, D, G><<<grid, NT, 0, stream>>>(p);
+  if (p.table == nullptr) {
+    decode_split_kernel<T, D, G, true><<<grid, NT, 0, stream>>>(p);
+  } else {
+    decode_split_kernel<T, D, G, false><<<grid, NT, 0, stream>>>(p);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   decode_merge_kernel<T, D><<<p.B * p.H, D, 0, stream>>>(p);
@@ -225,6 +247,18 @@ int by_group(const DecodeParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+int dispatch(const DecodeParams& p, int D, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16) {
+    if (D == 128) return by_group<__nv_bfloat16, 128>(p, s);
+    if (D == 32) return by_group<__nv_bfloat16, 32>(p, s);
+  } else if (dtype == DTYPE_F32) {
+    if (D == 128) return by_group<float, 128>(p, s);
+    if (D == 32) return by_group<float, 32>(p, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" int paged_decode_fwd(
@@ -235,16 +269,27 @@ extern "C" int paged_decode_fwd(
     int B, int H, int KVH, int D, int npg, int page, int splits,
     int pages_per_split, int window, float scale, int dtype, void* stream) {
   if (B == 0) return 0;
+  if (table == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   DecodeParams p{q, k_pool, v_pool, table, lengths, page_pos, k_new, v_new,
-                 append_page, append_slot, part_m, part_l, part_acc, o, lse,
-                 B, H, KVH, npg, page, splits, pages_per_split, window, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_BF16) {
-    if (D == 128) return by_group<__nv_bfloat16, 128>(p, s);
-    if (D == 32) return by_group<__nv_bfloat16, 32>(p, s);
-  } else if (dtype == DTYPE_F32) {
-    if (D == 128) return by_group<float, 128>(p, s);
-    if (D == 32) return by_group<float, 32>(p, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+                 append_page, append_slot, 0, 0, part_m, part_l, part_acc, o,
+                 lse, B, H, KVH, npg, page, splits, pages_per_split, window,
+                 scale};
+  return dispatch(p, D, dtype, stream);
+}
+
+// K4: one query per row over a dense (B, S, KVH, D) cache, cut into
+// virtual pages of `page` keys (npg = ceil(S / page)).
+extern "C" int dense_decode_fwd(
+    const void* q, const void* k, const void* v, const int* lengths,
+    float* part_m, float* part_l, float* part_acc, void* o, float* lse,
+    int B, int H, int KVH, int D, int S, int kv_offset, int page,
+    int splits, int pages_per_split, int window, float scale, int dtype,
+    void* stream) {
+  if (B == 0) return 0;
+  const int npg = (S + page - 1) / page;
+  DecodeParams p{q, const_cast<void*>(k), const_cast<void*>(v), nullptr,
+                 lengths, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 S, kv_offset, part_m, part_l, part_acc, o, lse, B, H, KVH,
+                 npg, page, splits, pages_per_split, window, scale};
+  return dispatch(p, D, dtype, stream);
 }

@@ -1,5 +1,5 @@
-"""Paged decode kernel (CUDA, ``csrc/paged_decode.cu``), its plain PyTorch
-version, and the page helpers of the serving engine's block pools.
+"""Decode kernels (CUDA, ``csrc/paged_decode.cu``), their plain PyTorch
+versions, and the page helpers of the serving engine's block pools.
 
 * ``paged_flash_decode`` (K1) — one query token per row against a paged
   pool (n_pages, page, KVH, D) through a block table (B, npg); length and
@@ -8,6 +8,13 @@ version, and the page helpers of the serving engine's block pools.
   K/V is written at ``(append_page, append_slot)`` in place and the row
   attends over ``lengths + 1`` keys.  Replaces the Pallas
   ``paged_flash_decode`` reached through ``paged_append_attend``.
+* ``flash_decode`` (K4) — one query token per row against a dense cache
+  (B, S, KVH, D): key j sits at position ``kv_offset + j`` and is valid
+  while below ``lengths`` and, with ``window``, at or above
+  ``lengths - window``; returns ``(o, lse)``, with ``o = 0`` and
+  ``lse = -1e30`` for a row with no valid key.  Any S.  Replaces the
+  Pallas ``flash_decode``.  It runs the split-KV design of K1, with the
+  row's keys cut into virtual pages.
 * Page helpers (``scatter_kv_chunk``, ``copy_kv_blocks``,
   ``gather_kv_blocks``, ``scatter_kv_blocks``, ``copy_kv_block_within``)
   are indexing, not kernels: the reference runs them as XLA scatters on
@@ -101,17 +108,24 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, lengths, *,
     kv_pos = (page_pos[:, :, None] + torch.arange(
         page, dtype=torch.int32, device=q.device)[None, None]
               ).reshape(B, npg * page)
+    idx = block_tables.long()
+    return _decode_plain(
+        q, k_pool[idx].reshape(B, npg * page, *k_pool.shape[2:]),
+        v_pool[idx].reshape(B, npg * page, *v_pool.shape[2:]), kv_pos,
+        lengths, window, softmax_scale)
+
+
+def _decode_plain(q, k, v, kv_pos, lengths, window, softmax_scale):
+    """One query per row over per-row keys k/v (B, S, KVH, D) at positions
+    kv_pos (B, S): keys outside [lengths - window, lengths) are selected
+    out before any arithmetic; ``(o, lse)`` with ``o = 0`` for a row with
+    no valid key — what K1 and K4 compute."""
     valid = kv_pos < lengths[:, None]
     if window is not None:
         valid &= kv_pos >= (lengths[:, None] - window)
-    idx = block_tables.long()
-    zero = torch.zeros((), dtype=k_pool.dtype, device=q.device)
-    k = torch.where(valid[:, :, None, None],
-                    k_pool[idx].reshape(B, npg * page, *k_pool.shape[2:]),
-                    zero)
-    v = torch.where(valid[:, :, None, None],
-                    v_pool[idx].reshape(B, npg * page, *v_pool.shape[2:]),
-                    zero)
+    zero = torch.zeros((), dtype=k.dtype, device=q.device)
+    k = torch.where(valid[:, :, None, None], k, zero)
+    v = torch.where(valid[:, :, None, None], v, zero)
     out, lse = _ref.attention_ref(
         q[:, None], k, v, q_pos=(lengths - 1)[:, None], kv_pos=kv_pos,
         causal=False, kv_valid=valid, softmax_scale=softmax_scale,
@@ -126,6 +140,20 @@ _PD_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 # blocks the split kernel aims for: a few per SM of the 132 on an H100
 _TARGET_BLOCKS = 4 * 132
+
+
+def _partials(q: torch.Tensor, npg: int, KVH: int):
+    """Split a row's ``npg`` pages over blocks (flash-decoding) and
+    allocate the splits' (m, l, acc) partials the merge kernel reads."""
+    B, H, D = q.shape
+    pages_per_split = max(1, -(-npg * B * KVH // _TARGET_BLOCKS))
+    splits = -(-npg // pages_per_split)
+    part_m = torch.empty((B, H, splits), dtype=torch.float32,
+                         device=q.device)
+    part_acc = torch.empty((B, H, splits, D), dtype=torch.float32,
+                           device=q.device)
+    return splits, pages_per_split, part_m, torch.empty_like(part_m), \
+        part_acc
 
 
 def _int32_on(t: torch.Tensor, device, n: int, what: str) -> torch.Tensor:
@@ -179,12 +207,8 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
           else _int32_on(page_pos, dev, B * npg, "page_pos"))
     ap = _int32_on(append_page, dev, B, "append_page") if append else None
     asl = _int32_on(append_slot, dev, B, "append_slot") if append else None
-    pages_per_split = max(1, -(-npg * B * KVH // _TARGET_BLOCKS))
-    splits = -(-npg // pages_per_split)
-    part_m = torch.empty((B, H, splits), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, splits, D), dtype=torch.float32,
-                           device=dev)
+    splits, pages_per_split, part_m, part_l, part_acc = _partials(
+        q, npg, KVH)
     o = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=dev)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
@@ -205,3 +229,68 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_flash_decode.launches = 0
+
+
+# ----------------------------------------------------------------- K4
+def flash_decode_plain(q, k_cache, v_cache, lengths, *,
+                       window: Optional[int] = None, softmax_scale=None,
+                       kv_offset: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: ``(o, lse)``."""
+    B, S = k_cache.shape[:2]
+    kv_pos = kv_offset + torch.arange(S, dtype=torch.int32, device=q.device)
+    return _decode_plain(q, k_cache, v_cache, kv_pos[None].expand(B, S),
+                         lengths, window, softmax_scale)
+
+
+_DD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# keys per virtual page of a dense row (the split granularity)
+_DENSE_PAGE = 64
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                 window: Optional[int] = None,
+                 softmax_scale: Optional[float] = None,
+                 kv_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4.  q (B, H, D); caches (B, S, KVH, D); lengths (B,) int32.
+    Returns o (B, H, D) and lse (B, H) fp32."""
+    if not q.is_cuda:
+        return flash_decode_plain(q, k_cache, v_cache, lengths,
+                                  window=window, softmax_scale=softmax_scale,
+                                  kv_offset=kv_offset)
+    B, H, D = q.shape
+    _, S, KVH, Dk = k_cache.shape
+    if (Dk != D or v_cache.shape != k_cache.shape or H % KVH
+            or k_cache.shape[0] != B):
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)} cache "
+                         f"{tuple(k_cache.shape)}")
+    if H // KVH not in (1, 2, 4, 8):
+        raise ValueError(f"flash_decode: GQA group {H // KVH} not in "
+                         "(1, 2, 4, 8)")
+    _check("flash_decode", q, k_cache, v_cache)
+    dev = q.device
+    ln = lengths.to(torch.int32).reshape(B).contiguous()
+    if ln.device != dev:
+        raise ValueError(f"flash_decode: lengths must be on {dev}")
+    splits, pages_per_split, part_m, part_l, part_acc = _partials(
+        q, max(1, -(-S // _DENSE_PAGE)), KVH)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    fn = _build.library("paged_decode").dense_decode_fwd
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _DD_ARGS, ctypes.c_int
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            ln.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B, H, KVH, D, S, int(kv_offset), _DENSE_PAGE, splits,
+            pages_per_split, -1 if window is None else int(window),
+            float(scale), _DTYPES[q.dtype], _build.stream_ptr(dev))
+    _build.check(rc, "flash_decode")
+    flash_decode.launches += 1
+    return o, lse
+
+
+flash_decode.launches = 0

@@ -16,8 +16,10 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  paged_flash_prefill)
-from repro_torch.kernels.flash_decode import (fused_append_attend,
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              fused_append_attend,
                                               paged_flash_decode)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 IMPLS = (None, "ref")
 
@@ -45,16 +47,17 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                      window: Optional[int] = None, softmax_scale=None,
                      with_lse: bool = False, kv_offset: int = 0,
                      impl: Optional[str] = None):
-    """Dense-cache decode.  Its kernel (K4) is not ported yet, so only the
-    plain version runs, and only on the CPU or when asked for by name."""
-    if use_kernel(q, impl):
-        raise NotImplementedError(
-            "dense-cache decode has no CUDA kernel yet; serve through the "
-            "paged pools, or pass impl='ref'")
-    return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
-                                     window=window,
-                                     softmax_scale=softmax_scale,
-                                     with_lse=with_lse, kv_offset=kv_offset)
+    """Dense-cache decode: one query token per row.  q (B, H, D); caches
+    (B, S, KVH, D); lengths (B,) valid keys counted from ``kv_offset``."""
+    if not use_kernel(q, impl):
+        return _ref.decode_attention_ref(q, k_cache, v_cache, lengths,
+                                         window=window,
+                                         softmax_scale=softmax_scale,
+                                         with_lse=with_lse,
+                                         kv_offset=kv_offset)
+    o, lse = flash_decode(q, k_cache, v_cache, lengths, window=window,
+                          softmax_scale=softmax_scale, kv_offset=kv_offset)
+    return (o, lse) if with_lse else o
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
@@ -123,6 +126,22 @@ def paged_prefill_attention(q, k_new, v_new, q_pos, kv_pos_new,
         softmax_scale=softmax_scale)
     out, _ = _ref.merge_partials([o_h, o_s], [lse_h, lse_s])
     return out
+
+
+def ssd(x, dt, A, Bm, Cm, *, h0=None, chunk: int = 128,
+        impl: Optional[str] = None):
+    """Mamba-2 chunked SSD scan: ``(y, h_final)``.  On the card K5 masks
+    the ragged last chunk itself; the plain version pads it with dt = 0
+    (the recurrence's identity), as the reference does."""
+    if not use_kernel(x, impl):
+        return ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+    return ssd_scan(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+
+
+def ssd_decode(x, dt, A, Bm, Cm, h):
+    """One-token SSD state update, O(1) per token: plain PyTorch on every
+    device, as in the reference (which has no kernel for it)."""
+    return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, h)
 
 
 merge_partials = _ref.merge_partials

@@ -207,3 +207,109 @@ def paged_prefill_attention_ref(
     return attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
                          window=window, kv_valid=kv_valid,
                          softmax_scale=softmax_scale)
+
+
+# ------------------------------------------------------------------ mamba-2
+def _rep_heads(m: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
+    return torch.repeat_interleave(m.float(), rep, dim=dim)
+
+
+def ssd_ref(x: torch.Tensor,              # (B, S, H, P) per-head inputs
+            dt: torch.Tensor,             # (B, S, H) softplus'd step sizes
+            A: torch.Tensor,              # (H,) negative decay rates
+            Bm: torch.Tensor,             # (B, S, G, N) input matrices
+            Cm: torch.Tensor,             # (B, S, G, N) output matrices
+            *, h0: Optional[torch.Tensor] = None,   # (B, H, P, N)
+            return_state: bool = False):
+    """Sequential SSD (state-space duality) recurrence — the oracle.
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T ;  y_t = C_t h_t^T.
+    Grouped B/C: head h uses group h // (H // G)."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = _rep_heads(Bm, rep, 2), _rep_heads(Cm, rep, 2)
+    decay = torch.exp(dtf * A.float()[None, None, :])          # (B, S, H)
+    h = (torch.zeros((B_, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        h = (h * decay[:, t, :, None, None]
+             + (dtf[:, t, :, None] * xf[:, t])[..., None]
+             * Bf[:, t, :, None, :])
+        ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, t], h))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
+                    return_state: bool = False):
+    """Chunked SSD (quadratic within a chunk, recurrent across chunks) —
+    matches ``ssd_ref``; the algorithm of the CUDA kernel K5.
+
+    Written as explicit steps with the heads split as (G, H/G) so that B
+    and C are never repeated per head and no (B, nc, L, L, H, P) tensor is
+    formed: the largest intermediates are the per-head decay matrix and
+    scores, (B, nc, G, H/G, L, L)."""
+    B_, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R = H // G
+    assert S % chunk == 0, (S, chunk)
+    nc, L = S // chunk, chunk
+    f32 = torch.float32
+    xf = x.float().reshape(B_, nc, L, G, R, P)
+    dtf = dt.float().reshape(B_, nc, L, G, R)
+    Bf = Bm.float().reshape(B_, nc, L, G, N)
+    Cf = Cm.float().reshape(B_, nc, L, G, N)
+
+    a = dtf * A.float().reshape(G, R)                          # <= 0
+    a_cum = torch.cumsum(a, dim=2)                             # inclusive
+    a_total = a_cum[:, :, -1]                                  # (B,nc,G,R)
+    ac = a_cum.permute(0, 1, 3, 4, 2)                          # (B,nc,G,R,L)
+
+    # intra-chunk: y_i += sum_{j<=i} exp(a_cum_i - a_cum_j) dt_j (C_i.B_j) x_j
+    # (the upper triangle is selected out before exp: it would overflow)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=x.device))
+    seg = ac[..., :, None] - ac[..., None, :]                  # (..,L,L)
+    decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
+                        0.0)
+    scores = torch.einsum("bclgn,bcmgn->bcglm", Cf, Bf)        # C B^T
+    w_in = scores[:, :, :, None] * decay \
+        * dtf.permute(0, 1, 3, 4, 2)[..., None, :]             # (..,L,L)
+    y = torch.einsum("bcgrlm,bcmgrp->bclgrp", w_in, xf)
+    del seg, decay, w_in
+
+    # chunk states: sum_j exp(a_total - a_cum_j) dt_j x_j B_j^T
+    w = torch.exp(a_total[:, :, None] - a_cum) * dtf           # (B,nc,L,G,R)
+    states = torch.einsum("bclgrp,bclgn->bcgrpn", xf * w[..., None], Bf)
+
+    # inter-chunk recurrence over the chunk states
+    h = (torch.zeros((B_, G, R, P, N), dtype=f32, device=x.device)
+         if h0 is None else h0.float().reshape(B_, G, R, P, N))
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)                                       # state BEFORE c
+        h = h * torch.exp(a_total[:, c])[..., None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                        # (B,nc,G,R,P,N)
+
+    # inter-chunk output: y_i += exp(a_cum_i) C_i h_prev^T
+    y = y + torch.einsum("bclgn,bcgrpn->bclgrp", Cf, h_prev) \
+        * torch.exp(a_cum)[..., None]
+    y = y.reshape(B_, S, H, P).to(x.dtype)
+    h = h.reshape(B_, H, P, N)
+    return (y, h) if return_state else y
+
+
+def ssd_decode_ref(x, dt, A, Bm, Cm, h):
+    """One-token SSD state update.  x (B, H, P), dt (B, H), Bm/Cm
+    (B, G, N), h (B, H, P, N) -> (y (B, H, P), h_new fp32)."""
+    rep = x.shape[1] // Bm.shape[1]
+    Bf, Cf = _rep_heads(Bm, rep, 1), _rep_heads(Cm, rep, 1)
+    dtf = dt.float()
+    decay = torch.exp(dtf * A.float()[None, :])                # (B, H)
+    h_new = (h.float() * decay[:, :, None, None]
+             + (dtf[:, :, None] * x.float())[..., None] * Bf[:, :, None, :])
+    y = torch.einsum("bhn,bhpn->bhp", Cf, h_new).to(x.dtype)
+    return y, h_new

@@ -5,9 +5,10 @@
 Runs the real execution engine on the CUDA card (``--device cpu`` for the
 plain PyTorch path): CDSP chunked prefill straight into KV pages, KV
 hand-off, continuous-batch paged decode — and prints per-request plans and
-latency metrics from the event clock, for the reduced model.  ``serve``
-is the entry point for any config (``chip_smoke.py`` drives Llama-3-8B at
-its published widths through it).
+latency metrics from the event clock, for the reduced model
+(``--arch mamba2-1.3b`` serves the attention-free Mamba-2).  ``serve`` is
+the entry point for any config (``chip_smoke.py`` drives Llama-3-8B and
+Mamba-2-1.3B at their published widths through it).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ Single-device branches of the reference (models/attention.py):
       with a paged history, over [history pages ++ own chunk] (K2 + K3 +
       LSE merge on the card);
   decode — one token per row: the fused paged append+attend tick (K1 on
-      the card) over {"k","v","block_table"} pools, or the plain dense
-      decode over {"k","v"} buffers.
+      the card) over {"k","v","block_table"} pools, or dense decode (K4 on
+      the card) over {"k","v"} buffers.
 """
 
 from __future__ import annotations

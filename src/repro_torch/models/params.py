@@ -5,7 +5,9 @@ The tree mirrors the reference: ``{"embed", "final_norm", "unembed",
 "blocks": {pattern position: {name: (n_blocks, ...)}}}`` with each pattern
 position's parameters stacked over a leading ``n_blocks`` axis.  Matrices
 are stored in ``cfg.dtype`` (the reference keeps fp32 and casts at every
-call; casting once at load gives the same numbers) and norm scales in fp32.
+call; casting once at load gives the same numbers).  Norm scales and the
+SSM's per-head ``dt_bias``, ``A_log`` and ``D``, which the reference reads
+in fp32 whatever the compute type, are kept in fp32.
 """
 
 from __future__ import annotations
@@ -30,13 +32,26 @@ def _attn_shapes(cfg: ModelConfig) -> dict:
     return s
 
 
+def _mamba_shapes(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    H = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.ngroups * s.d_state
+    return {"wz": (d, d_in), "wxbc": (d, conv_ch), "wdt": (d, H),
+            "dt_bias": (H,), "A_log": (H,), "D": (H,),
+            "conv_w": (s.d_conv, conv_ch), "conv_b": (conv_ch,),
+            "norm": (d_in,), "wout": (d_in, d)}
+
+
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    if spec.mixer != "attn" or spec.cross_attn or spec.ffn == "moe":
+    if spec.cross_attn or spec.ffn == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention layers are ported so far")
+            f"{cfg.name}: cross attention and MoE layers are not ported yet")
     d = cfg.d_model
     s = {"norm1": (d,)}
-    s.update(_attn_shapes(cfg))
+    s.update(_attn_shapes(cfg) if spec.mixer == "attn"
+             else _mamba_shapes(cfg))
     if spec.ffn != "none":
         s["norm2"] = (d,)
         ffn = {"wi": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
@@ -52,7 +67,7 @@ def _stack(tree: dict, n: int) -> dict:
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
-    """Shapes of the dense-decoder parameter tree (reference params.py:80)."""
+    """Shapes of the parameter tree (reference params.py:80)."""
     if cfg.encoder_decoder or cfg.pos_embedding != "rope":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and learned positions are not "
@@ -66,8 +81,9 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
-def _is_norm(name: str) -> bool:
-    return name.startswith("norm") or name == "final_norm"
+def _is_fp32(name: str) -> bool:
+    return (name.startswith("norm") or name == "final_norm"
+            or name in ("dt_bias", "A_log", "D"))
 
 
 def _map_tree(shapes: dict, fn, path=()) -> dict:
@@ -78,20 +94,32 @@ def _map_tree(shapes: dict, fn, path=()) -> dict:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: Optional[str] = None) -> dict:
     """Seeded initialisation on ``device`` with the reference's rules
-    (params.py:188): norms at one, biases at zero, every other tensor
-    normal with std ``1/sqrt(fan_in)`` (fan_in = second-to-last dim).
-    Torch's generator does not reproduce the reference's numbers; tests
-    bridge the reference's tree with ``params_from_numpy`` instead.
+    (params.py:188): norms and the SSM skip ``D`` at one, biases and
+    ``conv_b`` at zero, ``dt_bias`` so that softplus(dt_bias) spans
+    [1e-3, 1e-1] log-uniformly, ``A_log = log(U(1, 16))``, every other
+    tensor normal with std ``1/sqrt(fan_in)`` (fan_in = second-to-last
+    dim).  Torch's generator does not reproduce the reference's numbers;
+    tests bridge the reference's tree with ``params_from_numpy`` instead.
     ``device`` defaults to CUDA (raising without a card)."""
     device = resolve_device(device)
     dt = getattr(torch, dtype or cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
+    f32 = torch.float32
+
+    def uniform(shape, lo, hi):
+        return torch.empty(shape, dtype=f32, device=device).uniform_(
+            lo, hi, generator=gen)
 
     def make(path, shape):
         name = path[-1]
-        if _is_norm(name):
-            return torch.ones(shape, dtype=torch.float32, device=device)
-        if name.startswith("b"):
+        if name == "dt_bias":
+            u = uniform(shape, math.log(1e-3), math.log(1e-1))
+            return torch.log(torch.expm1(torch.exp(u)))
+        if name == "A_log":
+            return torch.log(uniform(shape, 1.0, 16.0))
+        if _is_fp32(name):                      # norms and D
+            return torch.ones(shape, dtype=f32, device=device)
+        if name.startswith("b") or name == "conv_b":
             return torch.zeros(shape, dtype=dt, device=device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = 1.0 / math.sqrt(max(fan_in, 1))
@@ -106,7 +134,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The reference's parameter tree (numpy arrays, same keys and shapes)
     as the port's on ``device`` (default CUDA): matrices cast once to
-    ``cfg.dtype``, norms in fp32."""
+    ``cfg.dtype``, norms and the SSM's dt_bias/A_log/D in fp32."""
     device = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
     shapes = param_shapes(cfg)
@@ -119,7 +147,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
         if a.shape != shape:
             raise ValueError(f"{'/'.join(path)}: shape {a.shape} != {shape}")
         t = torch.from_numpy(a).to(device)
-        return t if _is_norm(path[-1]) else t.to(dt)
+        return t if _is_fp32(path[-1]) else t.to(dt)
 
     return _map_tree(shapes, conv)
 

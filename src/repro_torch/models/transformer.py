@@ -10,8 +10,9 @@ its per-block slice is a view, so the fused decode tick writes the live
 pool in place.
 
 Modes: "train" (logits for every position), "prefill" (logits at the last
-position + the chunk's KV), "decode" (one token + updated caches).  Only
-the dense pattern is ported; MoE, SSM and encoder stacks raise.
+position + the chunk's caches), "decode" (one token + updated caches).
+Attention and Mamba-2 layers are ported; MoE, cross attention and encoder
+stacks raise.
 """
 
 from __future__ import annotations
@@ -24,25 +25,37 @@ from repro_torch.models.attention import attention_block
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import embed, mlp, rms_norm, unembed
 from repro_torch.models.sharding import ExecContext
+from repro_torch.models.ssm import mamba_block
 
 
 def _layer(x, spec: LayerSpec, p: dict, cfg: ModelConfig, ctx: ExecContext,
            positions, mode: str, cache: Optional[dict], cache_len,
            causal: bool, history: Optional[dict] = None):
     """One pre-norm layer.  Returns (x, new_cache)."""
-    if spec.mixer != "attn" or spec.cross_attn or spec.ffn == "moe":
+    if spec.cross_attn or spec.ffn == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: only dense attention layers are ported so far")
+            f"{cfg.name}: cross attention and MoE layers are not ported yet")
     new_cache = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    window = ctx.window if ctx.window is not None else cfg.sliding_window
-    o, c = attention_block(
-        h, p, cfg, ctx, positions, mode,
-        cache=None if cache is None else cache.get("self"),
-        cache_len=cache_len, window=window, causal=causal,
-        history=None if history is None else history.get("self"))
-    if c is not None and mode in ("prefill", "decode"):
-        new_cache["self"] = c
+    if spec.mixer == "attn":
+        window = ctx.window if ctx.window is not None else cfg.sliding_window
+        o, c = attention_block(
+            h, p, cfg, ctx, positions, mode,
+            cache=None if cache is None else cache.get("self"),
+            cache_len=cache_len, window=window, causal=causal,
+            history=None if history is None else history.get("self"))
+        if c is not None and mode in ("prefill", "decode"):
+            new_cache["self"] = c
+    else:
+        # a CDSP chunk's SSM history (the previous chunk's conv window and
+        # state) is its cache
+        hist = None if history is None else history.get("self")
+        o, c = mamba_block(h, p, cfg, ctx, mode,
+                           cache=(hist if hist is not None else
+                                  (None if cache is None
+                                   else cache.get("self"))))
+        if c is not None:
+            new_cache["self"] = c
     x = x + o
     if spec.ffn != "none":
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -109,7 +122,7 @@ def forward(params: dict, cfg: ModelConfig, ctx: ExecContext,
             history: Optional[dict] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run the model: tokens (B, S) int, positions (B, S) int32.  Returns
-    (logits, aux_loss (0 for the dense stack), caches)."""
+    (logits, aux_loss (0: no MoE layer is ported), caches)."""
     if cfg.encoder_decoder:
         raise NotImplementedError("encoder-decoder models are not ported yet")
     dtype = getattr(torch, cfg.dtype)

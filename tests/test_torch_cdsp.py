@@ -1,6 +1,8 @@
-"""CDSP chunked prefill in the port: chunked equals monolithic, and the
-paged chunk path equals the reference's ``prefill_chunk_paged`` on the
-same weights, tokens and page layout (fp32, ``atol = rtol = 1e-4``)."""
+"""CDSP chunked prefill in the port: chunked equals monolithic (attention
+over the concatenated history; for Mamba-2 the SSD state and conv window
+handed from chunk to chunk), and the paged chunk path equals the
+reference's ``prefill_chunk_paged`` on the same weights, tokens and page
+layout (fp32, ``atol = rtol = 1e-4``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,7 @@ def _tokens(cfg, S, seed, batch=B):
     return tok, pos
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "yi-9b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "yi-9b", "mamba2-1.3b"])
 @pytest.mark.parametrize("chunks", [[16, 48], [8, 24, 32], [1, 63]])
 def test_chunked_equals_monolithic(name, chunks, reduced_params_cache):
     cfg, _, _, params = _setup(reduced_params_cache, name)

@@ -108,6 +108,22 @@ SCENARIOS = {
         engine=dict(max_batch=4, max_seq=256, block_size=32),
         trace=dict(seed=11, n=1, lo=0, hi=0, gap=0.0, out_len=3, fixed=64),
         preempt=((0, 1e-6),)),
+    # tests/test_engine.py:18 (mamba2-1.3b) — an attention-free model: no
+    # KV pages, each request's SSD state and conv window ride the aux
+    # history from chunk to chunk and into the decode batch
+    "mamba_tetris": dict(
+        arch="mamba2-1.3b",
+        spec=dict(n_prefill=16, n_decode=2, sp_candidates=(1, 2, 4, 8)),
+        policy="tetris", engine=dict(max_batch=4, max_seq=256),
+        trace=dict(seed=1, n=4, lo=20, hi=90, gap=0.05, out_len=3)),
+    # tests/test_paged_engine.py:46 (mamba2-1.3b) — two chunks per prompt:
+    # the second chunk starts from the first's SSD state and conv window
+    "mamba_multichunk": dict(
+        arch="mamba2-1.3b",
+        spec=dict(n_prefill=8, n_decode=2, sp_candidates=(1, 2, 4)),
+        policy="two_chunk",
+        engine=dict(max_batch=4, max_seq=256, block_size=32),
+        trace=dict(seed=7, n=2, lo=40, hi=90, gap=0.03, out_len=3)),
     # tests/test_paged_engine.py:200 — decode growth exhausts a tight pool
     "block_exhaustion": dict(
         spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
@@ -121,8 +137,9 @@ SCENARIOS = {
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
 def test_engine_records_match_reference(scenario, reduced_params_cache):
     sc = SCENARIOS[scenario]
-    jcfg, jp = reduced_params_cache("yi-9b")
-    cfg = get_config("yi-9b").reduced()
+    arch = sc.get("arch", "yi-9b")
+    jcfg, jp = reduced_params_cache(arch)
+    cfg = get_config(arch).reduced()
     tp = params_from_numpy(jp, cfg, device="cpu")
     reqs = _trace(cfg, **sc["trace"])
     runs = {side: _run(side, p, c, sc["spec"], sc["policy"], reqs,
@@ -138,6 +155,8 @@ def test_engine_records_match_reference(scenario, reduced_params_cache):
         assert port.preempt_log, "the tight pool must preempt"
     if scenario == "preempt_requeue":
         assert port.reqs[0].preemptions == 1
+    if scenario == "mamba_multichunk":
+        assert all(len(r.chunk_plan) == 2 for r in port.reqs.values())
 
 
 def test_serve_cli_runs_on_cpu(capsys):
@@ -145,5 +164,14 @@ def test_serve_cli_runs_on_cpu(capsys):
     gets a chunk plan and tokens, and the latency summary prints."""
     from repro_torch.launch import serve
     serve.main(["--device", "cpu", "--requests", "3", "--output-len", "3"])
+    out = capsys.readouterr().out
+    assert out.count("plan=[(") == 3 and "TTFT p50" in out
+
+
+def test_serve_cli_runs_mamba_on_cpu(capsys):
+    """The launcher serves the attention-free Mamba-2 on the plain path."""
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--arch", "mamba2-1.3b", "--requests",
+                "3", "--output-len", "3"])
     out = capsys.readouterr().out
     assert out.count("plan=[(") == 3 and "TTFT p50" in out

@@ -1,9 +1,11 @@
 """The port's attention functions against the reference's, on the CPU.
 
-The plain versions of the three CUDA kernels (K1 paged decode with the
-fused append, K2 paged prefill, K3 flash attention) are held to the
-reference's Pallas kernels run in interpret mode, and the port's ``ref``
-functions and ``merge_partials`` to ``repro.kernels.ref``.  Inputs are
+The plain versions of the four attention kernels (K1 paged decode with the
+fused append, K2 paged prefill, K3 flash attention, K4 dense-cache decode)
+are held to the reference's Pallas kernels run in interpret mode, the
+port's ``ref`` functions and ``merge_partials`` to ``repro.kernels.ref``,
+and the dense serving path (CDSP chunked prefill, hand-off, dense decode)
+to the reference's tokens.  Inputs are
 made with numpy from a seed and handed to both packages.  Tolerance: fp32
 ``atol = rtol = 1e-5`` (the two sides sum in different orders).
 """
@@ -17,12 +19,14 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention import paged_flash_prefill as j_prefill
+from repro.kernels.flash_decode import flash_decode as j_dense_decode
 from repro.kernels.flash_decode import paged_append_attend as j_append
 from repro.kernels.flash_decode import paged_flash_decode as j_decode
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  paged_flash_prefill)
-from repro_torch.kernels.flash_decode import POS_PAD, paged_flash_decode
+from repro_torch.kernels.flash_decode import (POS_PAD, flash_decode,
+                                              paged_flash_decode)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -164,6 +168,81 @@ def test_paged_decode_all_masked_rows_match_pallas():
     _close(got_l, want_l)
     assert float(got_l[0].max()) == float(np.float32(ref.NEG_INF))
     assert not got_o[2].any()
+
+
+# ------------------------------------------------------------------- K4
+@pytest.mark.parametrize("lengths,S,H,KVH,D,window,offset", [
+    ([40, 64, 0], 64, 4, 2, 32, None, 0),   # ragged rows, an empty row
+    ([300, 129], 512, 8, 2, 128, 50, 0),    # window, group 4, head_dim 128
+    ([90, 20], 64, 4, 4, 32, None, 30),     # kv_offset (cache starts at 30)
+    ([70, 45], 256, 8, 1, 32, 16, 10),      # window + offset, group 8
+])
+def test_flash_decode_plain_matches_pallas(lengths, S, H, KVH, D, window,
+                                           offset):
+    rng = np.random.default_rng(6)
+    B = len(lengths)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    ln = np.asarray(lengths, np.int32)
+    want_o, want_l = j_dense_decode(*map(jnp.asarray, (q, k, v, ln)),
+                                    window=window, kv_offset=offset,
+                                    with_lse=True, interpret=True)
+    got_o, got_l = flash_decode(*map(torch.from_numpy, (q, k, v, ln)),
+                                window=window, kv_offset=offset)
+    _close(got_o, want_o)
+    _close(got_l, want_l)
+    assert flash_decode.launches == 0         # CPU tensors: plain version
+    # the dispatcher's plain route is the reference's oracle, which agrees
+    # wherever a row has a valid key
+    live = np.asarray(want_l).max(axis=1) > ref.NEG_INF / 2
+    o = ops.decode_attention(*map(torch.from_numpy, (q, k, v, ln)),
+                             window=window, kv_offset=offset)
+    _close(o[live], np.asarray(want_o)[live])
+
+
+def test_dense_path_tokens_match_reference(reduced_params_cache):
+    """CDSP chunked prefill over a dense history, the hand-off to dense
+    decode caches and greedy dense decode (K3 and K4 on the card) give the
+    reference's tokens."""
+    from repro.core.cdsp import chunked_prefill as j_chunked
+    from repro.core.cdsp import history_to_decode_caches as j_handoff
+    from repro.models.sharding import CPU_CTX as J_CTX
+    from repro.models.transformer import forward as j_forward
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.cdsp import (chunked_prefill,
+                                       history_to_decode_caches)
+    from repro_torch.models.params import params_from_numpy
+    from repro_torch.models.sharding import CPU_CTX
+    from repro_torch.models.transformer import forward
+    jcfg, jp = reduced_params_cache("llama3-8b")
+    cfg = get_config("llama3-8b").reduced()
+    tp = params_from_numpy(jp, cfg, device="cpu")
+    S, chunks, n = 40, [16, 7, 17], 5
+    tok = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                            (1, S)).astype(np.int32)
+    pos = np.arange(S, dtype=np.int32)[None]
+
+    def run(fwd, chunked, handoff, asarray, argmax, P, C):
+        logits, hist = chunked(P, C, ctx, asarray(tok), asarray(pos), chunks)
+        caches, clen = handoff(C, hist, max_seq=S + n)
+        out = [int(argmax(logits[0, 0, :C.vocab_size]))]
+        for i in range(n - 1):
+            c = np.full((1,), S + i, np.int32)
+            logits, _, caches = fwd(P, C, ctx, asarray([[out[-1]]]),
+                                    asarray(c[:, None]), "decode",
+                                    caches=caches, cache_len=asarray(c))
+            out.append(int(argmax(logits[0, 0, :C.vocab_size])))
+        return out
+
+    ctx = J_CTX
+    want = run(j_forward, j_chunked, j_handoff, jnp.asarray, jnp.argmax, jp,
+               jcfg)
+    ctx = CPU_CTX
+    got = run(forward, chunked_prefill, history_to_decode_caches,
+              lambda a: torch.as_tensor(np.asarray(a)), torch.argmax, tp,
+              cfg)
+    assert got == want
 
 
 # ------------------------------------------------- ref.py and the dispatcher

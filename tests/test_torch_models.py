@@ -1,4 +1,5 @@
-"""The port's dense decoder against the reference model, on the CPU.
+"""The port's models (dense decoder and Mamba-2) against the reference,
+on the CPU.
 
 Both packages get the same weights (the reference's seeded init, bridged
 through ``params_from_numpy``) and the same numpy inputs.  Logits agree to
@@ -22,7 +23,8 @@ from repro_torch.models.params import (count_params, init_params,
 from repro_torch.models.sharding import CPU_CTX, make_context
 from repro_torch.models.transformer import forward
 
-ARCHS = ["llama3-8b", "yi-9b"]
+ARCHS = ["llama3-8b", "yi-9b", "mamba2-1.3b"]
+ATTN_ARCHS = ["llama3-8b", "yi-9b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -44,8 +46,21 @@ def test_param_tree_matches_reference(name, reduced_params_cache):
     assert count_params(tp) == sum(np.size(x) for x in jax.tree.leaves(jp))
     fresh = init_params(_port_cfg(cfg), seed=3, device="cpu")
     again = init_params(_port_cfg(cfg), seed=3, device="cpu")
-    assert torch.equal(fresh["blocks"]["0"]["wq"], again["blocks"]["0"]["wq"])
+    mat = "wq" if "wq" in fresh["blocks"]["0"] else "wxbc"
+    assert torch.equal(fresh["blocks"]["0"][mat], again["blocks"]["0"][mat])
     assert torch.equal(fresh["final_norm"], torch.ones(cfg.d_model))
+    if cfg.ssm is not None:
+        # the reference's SSM rules: softplus(dt_bias) in [1e-3, 1e-1],
+        # -A = exp(A_log) in [1, 16], D and the gate norm at one, fp32
+        b = fresh["blocks"]["0"]
+        sp = torch.nn.functional.softplus(b["dt_bias"])
+        assert sp.min() >= 1e-3 * 0.999 and sp.max() <= 1e-1 * 1.001
+        a = torch.exp(b["A_log"])
+        assert a.min() >= 1.0 and a.max() <= 16.0
+        assert torch.equal(b["D"], torch.ones_like(b["D"]))
+        assert not b["conv_b"].any()
+        assert all(b[k].dtype == torch.float32
+                   for k in ("dt_bias", "A_log", "D", "norm"))
 
 
 def test_entry_points_default_to_cuda():
@@ -71,13 +86,13 @@ def test_forward_matches_reference(name, mode, reduced_params_cache):
                          torch.from_numpy(pos), mode)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     if mode == "prefill":
-        for part in ("k", "v"):
+        # attention: the chunk's k/v; Mamba-2: its conv window and state
+        for part, want_c in jc["0"]["self"].items():
             np.testing.assert_allclose(tc["0"]["self"][part].numpy(),
-                                       np.asarray(jc["0"]["self"][part]),
-                                       **TOL)
+                                       np.asarray(want_c), **TOL)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ATTN_ARCHS)
 def test_paged_decode_matches_reference(name, reduced_params_cache):
     """One fused paged decode tick: logits and the written pools agree;
     the port writes its pools in place and hands back the same tensors."""
@@ -109,6 +124,34 @@ def test_paged_decode_matches_reference(name, reduced_params_cache):
     for t, j in ((tk, jn["0"]["self"]["k"]), (tv, jn["0"]["self"]["v"])):
         np.testing.assert_allclose(t[:, :-1].numpy(), np.asarray(j)[:, :-1],
                                    **TOL)
+
+
+def test_ssm_decode_matches_reference(reduced_params_cache):
+    """Mamba-2 decode ticks from a prefill's (conv window, state) caches:
+    logits and the stepped caches agree."""
+    cfg, jp, tp = _bridged(reduced_params_cache, "mamba2-1.3b")
+    rng = np.random.default_rng(1)
+    B, S = 2, 20
+    tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    _, _, jc = j_forward(jp, cfg, J_CTX, jnp.asarray(tok), jnp.asarray(pos),
+                         "prefill")
+    tc = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jc)
+    for s in range(S, S + 3):
+        nxt = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+        clen = np.full((B,), s, np.int32)
+        want, _, jc = j_forward(jp, cfg, J_CTX, jnp.asarray(nxt),
+                                jnp.asarray(clen[:, None]), "decode",
+                                caches=jc, cache_len=jnp.asarray(clen))
+        got, _, tc = forward(tp, _port_cfg(cfg), CPU_CTX,
+                             torch.from_numpy(nxt),
+                             torch.from_numpy(clen[:, None]), "decode",
+                             caches=tc, cache_len=torch.from_numpy(clen))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        for part in ("conv", "ssm"):
+            np.testing.assert_allclose(tc["0"]["self"][part].numpy(),
+                                       np.asarray(jc["0"]["self"][part]),
+                                       **TOL)
 
 
 def _generate(params, cfg, prompt, n):
