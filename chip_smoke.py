@@ -32,7 +32,7 @@ failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
 subset; with no arguments phases 1-5 run.  ``--only profile`` adds a
 torch.profiler breakdown of one full-width prefill chunk and one decode
 tick of each served model (kernel time by group, and the card's idle
-share).
+share); it fails where a window shows no time for a kernel it must run.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -156,6 +157,29 @@ def close_ratio(got, want, atol: float, rtol: float) -> float:
 
 
 # ---------------------------------------------------------------- phase 1
+def _ptxas_report(log: str) -> dict:
+    """{kernel: "spills; registers"} from an ``nvcc -Xptxas -v`` log, the
+    kernels' names put through ``cu++filt`` where the toolkit has it."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = ""
+        elif name and ("spill" in ln or "registers" in ln):
+            out[name] = (out[name] + "; " if out[name] else "") + \
+                ln.split(":")[-1].strip()
+    from repro_torch.kernels import _build
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    if out and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(out), text=True,
+                               capture_output=True, timeout=60
+                               ).stdout.splitlines()
+        if len(names) == len(out):
+            out = dict(zip(names, out.values()))
+    return out
+
+
 def phase_device():
     import torch
     from repro_torch.kernels import _build
@@ -170,8 +194,7 @@ def phase_device():
     for name in _build.SOURCES:
         log = (_build.BUILD / f"{name}.log")
         if log.exists():
-            ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                           if "registers" in ln or "spill" in ln][:48]
+            ptxas[name] = _ptxas_report(log.read_text())
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), build_s=round(wall, 2),
@@ -246,6 +269,16 @@ def phase_kernels(full_shapes: bool = True):
         return {"o": max_err(o, po),
                 "o_ratio": close_ratio(o, po, t["atol"], t["rtol"])}
 
+    def dead_rows(o, lse, plain_lse):
+        """Rows with no valid key (the plain lse at NEG_INF) must read
+        o = 0 and lse = -1e30 exactly: {"dead_rows_off": count}."""
+        dead = plain_lse <= -1e29                       # (B, H, Sq)
+        if not bool(dead.any()):
+            return {}
+        od = o.transpose(1, 2)[dead]                    # (n, D)
+        off = int((od != 0).any(-1).sum()) + int((lse[dead] != -1e30).sum())
+        return {"dead_rows_off": float(off)}
+
     def record(name, case, dtype, errs, main=False, times=None,
                planted=None, tol_used=None):
         """``errs`` holds max abs errors and ``*_ratio`` entries (error
@@ -256,7 +289,8 @@ def phase_kernels(full_shapes: bool = True):
         t = tol[dtype]
         ok = (all(v <= 1.0 for k, v in errs.items() if k.endswith("_ratio"))
               and errs.get("lse", 0.0) <= t["lse"]
-              and errs.get("pool", 0.0) == 0.0)
+              and errs.get("pool", 0.0) == 0.0
+              and errs.get("dead_rows_off", 0.0) == 0.0)
         extra = {}
         if planted is not None:
             extra["planted"] = {k: {"ratio": v, "rejected": v > 1.0}
@@ -272,21 +306,35 @@ def phase_kernels(full_shapes: bool = True):
         if main:
             rows[name] = dict(max_abs_err=max(
                 v for k, v in errs.items()
-                if not k.endswith("_ratio") and k != "pool"), **times)
+                if not k.endswith("_ratio")
+                and k not in ("pool", "dead_rows_off")), **times)
 
     # ---- K3: flash attention over a chunk's own KV
     def k3(case, B, Sq, Sk, H, KVH, D, dtype, causal=True, window=None,
-           offset=0, main=False):
+           offset=0, perm=None, main=False):
+        """``perm``: "within" shuffles key positions inside each 64-key
+        tile, "across" over all keys (K/V rows move with them), so a tile's
+        positions are neither sorted nor its index's."""
         q = randn(B, Sq, H, D, dtype=dtype)
         k = randn(B, Sk, KVH, D, dtype=dtype)
         v = randn(B, Sk, KVH, D, dtype=dtype)
         qp = torch.arange(offset, offset + Sq, dtype=torch.int32, device=dev)
         kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+        if perm is not None:
+            if perm == "within":
+                idx = torch.cat([t0 + torch.randperm(min(64, Sk - t0),
+                                                     generator=gen)
+                                 for t0 in range(0, Sk, 64)])
+            else:
+                idx = torch.randperm(Sk, generator=gen)
+            idx = idx.to(dev)
+            kp, k, v = kp[idx], k[:, idx], v[:, idx]
         o, l = flash_attention(q, k, v, qp, kp, causal=causal, window=window)
         po, pl = flash_attention_plain(q, k, v, qp, kp, causal=causal,
                                        window=window)
         torch.cuda.synchronize()
-        errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl)}
+        errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl),
+                **dead_rows(o, l, pl)}
         times = planted = None
         if main:
             bad, _ = flash_attention_plain(q, k, v.roll(1, 1), qp, kp,
@@ -308,7 +356,9 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K2: chunk queries against history pages
     def k2(case, B, Sq, hist, H, KVH, D, page, dtype, window=None,
-           main=False):
+           main=False, fault=False):
+        """``fault`` (implied by ``main``): the check must also reject a
+        planted fault (V one key off) at this case's shape."""
         q = randn(B, Sq, H, D, dtype=dtype)
         S_h = max(hist) if max(hist) > 0 else page
         kd = randn(B, S_h, KVH, D, dtype=dtype)
@@ -325,9 +375,10 @@ def phase_kernels(full_shapes: bool = True):
         po, pl = paged_flash_prefill_plain(q, kpool, vpool, table, hl, qp,
                                            window=window)
         torch.cuda.synchronize()
-        errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl)}
+        errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl),
+                **dead_rows(o, l, pl)}
         times = planted = None
-        if main:
+        if main or fault:
             g2.manual_seed(1)
             vbad, _ = _pool_from_dense(vd.roll(1, 1), page, g2)
             bad, _ = paged_flash_prefill_plain(q, kpool, vbad, table, hl, qp,
@@ -336,6 +387,7 @@ def phase_kernels(full_shapes: bool = True):
             planted = {"v_one_key_off": close_ratio(bad, po, t["atol"],
                                                     t["rtol"])}
             del vbad
+        if main:
             es = torch.finfo(dtype).bits // 8
             nbytes = 2 * B * Sq * H * D * es + 2 * sum(hist) * KVH * D * es \
                 + B * H * Sq * 4
@@ -539,6 +591,8 @@ def phase_kernels(full_shapes: bool = True):
     if full_shapes:
         k3("main", 1, 3072, 3072, 32, 8, 128, bf, main=True)
         k2("main", 1, 3072, [3072], 32, 8, 128, 64, bf, main=True)
+        # the last page's NaN slots inside a 64-key tile
+        k2("main_hist3000", 1, 3072, [3000], 32, 8, 128, 64, bf, fault=True)
         k1("main", [512, 2048, 4096, 6144], 32, 8, 128, 64, bf, main=True)
         # the dense path's decode batch: the smoke prompts in a dense cache
         k4("main", [512, 2048, 4096, 6144], 6144, 32, 8, 128, bf,
@@ -557,6 +611,15 @@ def phase_kernels(full_shapes: bool = True):
         k3("ragged_causal_offset_g4", 1, 70, 130, 8, 2, 128, dt, offset=60)
         k3("window_g1", 1, 129, 129, 4, 4, 32, dt, window=17)
         k3("causal_all_masked_rows", 1, 40, 40, 4, 2, 32, dt, offset=-20)
+        # tiles classified by their positions, not their indices
+        k3("perm_within_tiles", 1, 300, 300, 8, 2, 128, dt, perm="within")
+        k3("perm_across_tiles_window", 1, 200, 333, 8, 2, 32, dt,
+           offset=133, window=90, perm="across")
+        # fewer queries than one 128-row tile
+        k3("sq17_d128_g4", 1, 17, 17, 8, 2, 128, dt)
+        k3("sq17_d32_g2", 2, 17, 150, 4, 2, 32, dt, offset=133)
+        k2("sq17_d128_g4", 1, 17, [3000], 32, 8, 128, 64, dt)
+        k2("sq17_d32_g1_page16", 2, 17, [70, 129], 4, 4, 32, 16, dt)
         k2("page8_d32_g2_ragged", 2, 37, [45, 3], 4, 2, 32, 8, dt)
         k2("page16_window_g4", 1, 50, [200], 8, 2, 128, 16, dt, window=70)
         k2("page32_masked_rows", 2, 33, [96, 0], 4, 4, 32, 32, dt)
@@ -940,6 +1003,11 @@ def phase_tokens():
 
 
 # ---------------------------------------------------------- profile (opt-in)
+# K2/K3's kernels in flash_attention.cu: the tensor-core kernel (bf16) and
+# the CUDA-core kernel (fp32), templated on <head_dim, paged>
+_ATTN_SYMBOL = re.compile(r"attn_(tc|simt)_kernel<\d+, (true|false)\b")
+
+
 def _kernel_groups(prof) -> dict:
     """Device time (ms) by kernel group from a torch.profiler run, and the
     largest ungrouped kernels by name."""
@@ -951,9 +1019,9 @@ def _kernel_groups(prof) -> dict:
         if not us or ev.device_type.name not in ("CUDA", "PrivateUse1"):
             continue
         name = ev.key
-        g = ("K2 paged_flash_prefill" if "attn_kernel" in name
-             and "true" in name else
-             "K3 flash_attention" if "attn_kernel" in name else
+        attn = _ATTN_SYMBOL.search(name)
+        g = (("K2 paged_flash_prefill" if attn.group(2) == "true"
+              else "K3 flash_attention") if attn else
              "K1 paged_flash_decode" if "decode_" in name else
              "K5 ssd_scan" if "ssd_" in name else
              "gemm" if any(t in name.lower() for t in
@@ -969,7 +1037,7 @@ def _kernel_groups(prof) -> dict:
 def _profile(model: str, windows) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for name, fn, reps in windows:
+    for name, fn, reps, need in windows:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -986,6 +1054,9 @@ def _profile(model: str, windows) -> None:
              kernel_ms=groups, busy_ms=busy,
              idle_share=(1.0 - busy / wall) if busy else None,
              top_other_ms={k: v / reps for k, v in others.items()})
+        check(all(groups.get(g, 0.0) > 0.0 for g in need),
+              f"profile {model}/{name}: no device time under {need}: "
+              f"{groups}")
 
 
 def phase_profile():
@@ -1025,10 +1096,12 @@ def phase_profile():
         ("prefill_chunk_3072_hist_3072",
          lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos, kv.pools,
                                      table[3, :3072 // page].tolist(),
-                                     3072), 2),
+                                     3072), 2,
+         ("K2 paged_flash_prefill", "K3 flash_attention")),
         ("decode_tick_b4",
          lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
-                         "decode", caches=caches, cache_len=clen), 8)))
+                         "decode", caches=caches, cache_len=clen), 8,
+         ("K1 paged_flash_decode",))))
     del params, kv, caches
     _free()
 
@@ -1048,10 +1121,10 @@ def phase_profile():
     _profile(cfg.name, (
         ("prefill_chunk_3072_after_3072",
          lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos, none,
-                                     [], 3072, aux), 2),
+                                     [], 3072, aux), 2, ("K5 ssd_scan",)),
         ("decode_tick_b4",
          lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
-                         "decode", caches=caches, cache_len=clen), 8)))
+                         "decode", caches=caches, cache_len=clen), 8, ())))
 
 
 def main(argv=None) -> int:

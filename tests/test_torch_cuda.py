@@ -19,7 +19,8 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 def test_kernels_match_plain_versions_on_card():
     """Every kernel against its plain version at the edge cases of
     ``chip_smoke.py``: page sizes 8-64, head_dim 32/128, GQA groups 1-8,
-    windows, POS_PAD columns, masked and padded rows, ragged tails, the
+    windows, POS_PAD columns, masked and padded rows, ragged tails, K3 key
+    positions permuted within and across tiles, chunks of 17 queries, the
     fused append's pool bytes, dense caches of any length with an offset,
     and SSD scans with ragged, sub-chunk and grouped inputs."""
     if not torch.cuda.is_available():
@@ -86,3 +87,106 @@ def test_ssd_scan_kernel_on_card():
         torch.testing.assert_close(y.float(), py.float(), atol=atol,
                                    rtol=rtol)
         torch.testing.assert_close(h, ph, atol=1e-4, rtol=1e-4)
+
+
+def _bf16_close(o, po):
+    """chip_smoke.py's elementwise check for bf16 o."""
+    o, po = o.float(), po.float()
+    assert bool(((o - po).abs() <= 1e-3 + 1e-2 * po.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 32, 64, 128, 48])
+def test_paged_prefill_nan_slots_inside_a_tile_on_card(page):
+    """K2 in bf16 at Llama-3-8B's heads with hist_len 3001, a multiple of
+    none of the page sizes: the last page's unused slots hold NaN and fall
+    inside a key tile, which the tensor-core kernel must zero before its
+    products.
+    Pages 8-128 load by TMA; 48 (neither divides the other's 64-key tile)
+    by cp.async."""
+    dev = _card()
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import (
+        paged_flash_prefill, paged_flash_prefill_plain)
+    g = torch.Generator().manual_seed(2)
+    hist, Sq = 3001, 200
+    q = torch.randn(1, Sq, 32, 128, generator=g).to(dev, torch.bfloat16)
+    kd = torch.randn(1, hist, 8, 128, generator=g).to(dev, torch.bfloat16)
+    vd = torch.randn(1, hist, 8, 128, generator=g).to(dev, torch.bfloat16)
+    kp, table = chip_smoke._pool_from_dense(kd, page, g.manual_seed(3))
+    vp, _ = chip_smoke._pool_from_dense(vd, page, g.manual_seed(3))
+    last = table[0, -1].long()
+    kp[last, hist % page:] = float("nan")
+    vp[last, hist % page:] = float("nan")
+    hl = torch.tensor([hist], dtype=torch.int32, device=dev)
+    qp = hist + torch.arange(Sq, dtype=torch.int32, device=dev)[None]
+    o, lse = paged_flash_prefill(q, kp, vp, table, hl, qp)
+    po, plse = paged_flash_prefill_plain(q, kp, vp, table, hl, qp)
+    assert torch.isfinite(o.float()).all()
+    _bf16_close(o, po)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_prefill_kernels_raise_on_unaligned_bf16(which):
+    """bf16 K2 and K3 read q, k and v 16 bytes at a time: a contiguous
+    view at an odd element offset raises at launch instead of faulting,
+    and the card stays usable."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     paged_flash_prefill)
+
+    def make(shape, shift):
+        n = torch.Size(shape).numel()
+        buf = torch.randn(n + 1, device=dev).to(torch.bfloat16)
+        return buf[shift:shift + n].view(shape)
+
+    S, page = 64, 16
+    t = {n: make((1, S, 8 if n == "q" else 2, 128), int(n == which))
+         for n in "qkv"}
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_attention(t["q"], t["k"], t["v"], pos, pos)
+    pools = {n: make((S // page, page, 2, 128), int(n == which))
+             for n in "kv"}
+    table = torch.arange(S // page, dtype=torch.int32, device=dev)[None]
+    hl = torch.tensor([S], dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        paged_flash_prefill(t["q"], pools["k"], pools["v"], table, hl,
+                            pos + S)
+    aligned = {n: x.clone() for n, x in t.items()}
+    o, _ = flash_attention(aligned["q"], aligned["k"], aligned["v"], pos,
+                           pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 128])
+def test_flash_attention_tile_classes_on_card(D):
+    """K3 in bf16: key positions permuted across tiles (classified by
+    position, not index), 17 queries (below one 128-row tile), and rows
+    with no valid key (o = 0, lse = -1e30 exactly)."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator().manual_seed(4)
+    for Sq, Sk, offset, perm in ((300, 300, 0, True), (17, 17, 0, False),
+                                 (40, 40, -20, False)):
+        q = torch.randn(1, Sq, 8, D, generator=g).to(dev, torch.bfloat16)
+        k = torch.randn(1, Sk, 2, D, generator=g).to(dev, torch.bfloat16)
+        v = torch.randn(1, Sk, 2, D, generator=g).to(dev, torch.bfloat16)
+        qp = torch.arange(offset, offset + Sq, dtype=torch.int32,
+                          device=dev)
+        kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+        if perm:
+            idx = torch.randperm(Sk, generator=g).to(dev)
+            kp, k, v = kp[idx], k[:, idx], v[:, idx]
+        o, lse = flash_attention(q, k, v, qp, kp)
+        po, plse = flash_attention_plain(q, k, v, qp, kp)
+        _bf16_close(o, po)
+        torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+        dead = plse <= -1e29
+        assert bool((lse[dead] == -1e30).all())
+        assert not o.transpose(1, 2)[dead].any()

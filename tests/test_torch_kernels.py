@@ -7,7 +7,9 @@ port's ``ref`` functions and ``merge_partials`` to ``repro.kernels.ref``,
 and the dense serving path (CDSP chunked prefill, hand-off, dense decode)
 to the reference's tokens.  Inputs are
 made with numpy from a seed and handed to both packages.  Tolerance: fp32
-``atol = rtol = 1e-5`` (the two sides sum in different orders).
+``atol = rtol = 1e-5`` (the two sides sum in different orders).  The bf16
+tensor-core K2/K3's arithmetic is emulated in torch and held to the plain
+versions under chip_smoke.py's elementwise check.
 """
 
 import jax.numpy as jnp
@@ -243,6 +245,108 @@ def test_dense_path_tokens_match_reference(reduced_params_cache):
               lambda a: torch.as_tensor(np.asarray(a)), torch.argmax, tp,
               cfg)
     assert got == want
+
+
+# ------------------------------------- the tensor-core kernels' arithmetic
+def _tc_emulation(q, k, v, q_pos, kv_pos, kv_valid, *, p_tail=True, bk=64):
+    """The bf16 K2/K3 kernel's arithmetic in torch: key rows that are not
+    valid zero-filled before any product, S = Q.K^T in fp32 from bf16
+    inputs, scaled to log2 units and masked by select, an online softmax
+    over ``bk``-key tiles with l summed from the fp32 P, and O += P.V in
+    fp32 with P rounded to a bf16 head plus (``p_tail``) the bf16 rounding
+    of its remainder.  Causal masks; q/k/v (B, S, heads, D) bf16."""
+    B, Sq, H, D = q.shape
+    G = H // k.shape[2]
+    zero = torch.zeros((), dtype=k.dtype)
+    k = torch.where(kv_valid[:, :, None, None], k, zero)
+    v = torch.where(kv_valid[:, :, None, None], v, zero)
+    kf = k.float().repeat_interleave(G, 2)
+    vf = v.float().transpose(1, 2).repeat_interleave(G, 1)   # (B, H, Sk, D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (
+        D ** -0.5 * np.log2(np.e))
+    ok = kv_valid[:, None, :] & (kv_pos[:, None, :] <= q_pos[:, :, None])
+    s = torch.where(ok[:, None], s, -torch.inf)
+    m = torch.full((B, H, Sq), -torch.inf)
+    l = torch.zeros(B, H, Sq)
+    o = torch.zeros(B, H, Sq, D)
+    for t in range(0, s.shape[-1], bk):
+        st = s[..., t:t + bk]
+        m_new = torch.maximum(m, st.amax(-1))
+        mu = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(st - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        head = p.bfloat16().float()
+        pv = head + (p - head).bfloat16().float() if p_tail else head
+        o = o * alpha[..., None] + pv @ vf[:, :, t:t + bk]
+        m = m_new
+    o = torch.where(l[..., None] > 0, o / l[..., None].clamp_min(1e-30), 0.0)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def _smoke_ratio(got, want, atol=1e-3, rtol=1e-2):
+    """chip_smoke.py's elementwise check for bf16 o: passes at <= 1."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (atol + rtol * w.abs())).max())
+
+
+def _tc_case(kernel, p_tail):
+    """(emulated o, plain o) at a reduced main-like shape: Sq = Sk = 512,
+    H 8, KVH 2, D 128, bf16 from a numpy seed.  K2's history is 500 keys
+    in shuffled 64-token pages whose unused slots hold NaN."""
+    rng = np.random.default_rng(6)
+    Sq, H, KVH, D = 512, 8, 2, 128
+
+    def bf16(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).bfloat16()
+
+    q = bf16(1, Sq, H, D)
+    pos = torch.arange(Sq, dtype=torch.int32)
+    if kernel == "flash_attention":
+        k, v = bf16(1, Sq, KVH, D), bf16(1, Sq, KVH, D)
+        want, _ = flash_attention(q, k, v, pos, pos)
+        got = _tc_emulation(q, k, v, pos[None], pos[None],
+                            torch.ones(1, Sq, dtype=torch.bool),
+                            p_tail=p_tail)
+        return got, want
+    hist, page = 500, 64
+    npg = -(-hist // page)
+    n_pages = npg + 3
+    table = torch.from_numpy(
+        rng.permutation(n_pages)[:npg].astype(np.int32))[None]
+    pools = []
+    for _ in range(2):
+        pool = torch.full((n_pages, page, KVH, D), float("nan"),
+                          dtype=torch.bfloat16)
+        pool[table[0].long()] = bf16(npg, page, KVH, D)
+        pool[table[0, -1].long(), hist % page:] = float("nan")
+        pools.append(pool)
+    hl = torch.tensor([hist], dtype=torch.int32)
+    qpos = hist + pos[None]
+    want, _ = paged_flash_prefill(q, *pools, table, hl, qpos)
+    # the kernel reads each key row through the table
+    kg, vg = (p[table.long()].reshape(1, npg * page, KVH, D) for p in pools)
+    j = torch.arange(npg * page, dtype=torch.int32)[None]
+    got = _tc_emulation(q, kg, vg, qpos, j, j < hist, p_tail=p_tail)
+    return got, want
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "paged_flash_prefill"])
+def test_tensor_core_arithmetic_fits_the_smoke_check(kernel):
+    """The bf16 kernels' one numerical change against their plain versions
+    (P.V from bf16 head + tail fragments of P, zero-filled invalid keys)
+    stays inside chip_smoke.py's fixed elementwise check."""
+    got, want = _tc_case(kernel, p_tail=True)
+    assert torch.isfinite(got.float()).all()
+    assert _smoke_ratio(got, want) <= 1.0
+
+
+def test_one_bf16_rounding_of_p_misses_the_smoke_check():
+    """Why the kernels keep P's tail: with P rounded once to bf16, the
+    causal rows whose terms cancel leave the elementwise check."""
+    got, want = _tc_case("flash_attention", p_tail=False)
+    assert _smoke_ratio(got, want) > 1.0
 
 
 # ------------------------------------------------- ref.py and the dispatcher
