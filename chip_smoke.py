@@ -8,7 +8,9 @@ Phases, each printing JSON lines:
                build of every kernel from ``src/repro_torch/kernels/csrc``;
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card, at the main paths' shapes and at edge cases,
-               with kernel, plain and library times;
+               with kernel, plain and library times (K1 and K4 also one
+               call at a time with a cold L2, and K1 over one row of
+               131,072 keys);
   3. serve   — Llama-3-8B (bf16, 32 layers) and then Mamba-2-1.3B (bf16,
                48 layers), each at full width with seeded weights, serve
                four requests through the port's ServingEngine; each path
@@ -120,6 +122,40 @@ def time_ms(fn, reps: int = 10, warmup: int = 2):
             fn()
         torch.cuda.synchronize()
     return (_device_ms(prof) / reps) or stream, stream
+
+
+def event_ms(fn, cold: bool, n: int = 20) -> float:
+    """Median ms of one call between its own pair of CUDA events.  With
+    ``cold``, a 256 MiB scratch tensor is written before each call, so the
+    call finds its inputs outside the 50 MB L2, as a decode tick finds a
+    layer's K/V (31 other layers' K/V pass through the L2 between two
+    reads of it).  The card is held busy while the host enqueues, so each
+    pair brackets only the call's kernels (and the gaps between them)."""
+    import torch
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(n):
+        if cold:
+            scratch.fill_(1)
+        # ~0.5 ms of spinning: longer than the host takes to enqueue a call
+        torch.cuda._sleep(1_000_000)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    ts = sorted(a.elapsed_time(b) for a, b in pairs)
+    return ts[len(ts) // 2]
+
+
+def _cold_times(fn) -> dict:
+    """``cold_ms`` (L2 flushed before each call) beside ``warm_event_ms``,
+    the same per-call event timing without the flush."""
+    return {"cold_ms": event_ms(fn, cold=True),
+            "warm_event_ms": event_ms(fn, cold=False)}
 
 
 def _times(kernel, plain, library, bms, by) -> dict:
@@ -407,7 +443,10 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K1: paged decode with the fused append
     def k1(case, lengths, H, KVH, D, page, dtype, window=None, append=True,
-           pos_pad_cols=0, pad_rows=(), main=False):
+           pos_pad_cols=0, pad_rows=(), main=False, timed=False):
+        """``main``: the kernel table's row; ``timed`` (implied by
+        ``main``): times (warm and cold L2) and a planted fault."""
+        timed = timed or main
         B = len(lengths)
         S = max(max(lengths) + 1, 1)
         q = randn(B, H, D, dtype=dtype)
@@ -444,7 +483,7 @@ def phase_kernels(full_shapes: bool = True):
                       append_slot=ln % page)
         kp2, vp2 = kpool.clone(), vpool.clone()
         planted = None
-        if main:
+        if timed:
             g2.manual_seed(2)
             vbad, _ = _pool_from_dense(vd.roll(1, 1), page, g2)
             bad, _ = paged_flash_decode_plain(q, kpool.clone(), vbad, table,
@@ -455,7 +494,7 @@ def phase_kernels(full_shapes: bool = True):
         torch.cuda.synchronize()
         live = slice(0, scratch)            # scratch bytes are garbage
         o, po, l, pl = o[live_rows], po[live_rows], l[live_rows], pl[live_rows]
-        if main:
+        if timed:
             t = tol[dtype]
             planted = {"v_one_key_off": close_ratio(
                 bad[live_rows], po, t["atol"], t["rtol"])}
@@ -466,7 +505,7 @@ def phase_kernels(full_shapes: bool = True):
                                        vpool[live].nan_to_num(7.0),
                                        vp2[live].nan_to_num(7.0))))}
         times = None
-        if main:
+        if timed:
             es = torch.finfo(dtype).bits // 8
             att = sum(lengths) + (B if append else 0)
             nbytes = 2 * B * H * D * es + 2 * att * KVH * D * es \
@@ -483,6 +522,8 @@ def phase_kernels(full_shapes: bool = True):
                 lambda: paged_flash_decode_plain(q, kp2, vp2, table, ln,
                                                  **kw),
                 _sdpa(q[:, None], kg, vg, mask), bms, by)
+            times.update(_cold_times(
+                lambda: paged_flash_decode(q, kpool, vpool, table, ln, **kw)))
         record("paged_flash_decode", case, dtype, errs, main, times,
                planted)
 
@@ -516,6 +557,8 @@ def phase_kernels(full_shapes: bool = True):
             times = _times(lambda: flash_decode(q, k, v, ln, **kw),
                            lambda: flash_decode_plain(q, k, v, ln, **kw),
                            _sdpa(q[:, None], k, v, mask), bms, by)
+            times.update(_cold_times(lambda: flash_decode(q, k, v, ln,
+                                                          **kw)))
         record("flash_decode", case, dtype, errs, main, times, planted)
 
     # ---- K5: the Mamba-2 chunked SSD scan
@@ -594,6 +637,9 @@ def phase_kernels(full_shapes: bool = True):
         # the last page's NaN slots inside a 64-key tile
         k2("main_hist3000", 1, 3072, [3000], 32, 8, 128, 64, bf, fault=True)
         k1("main", [512, 2048, 4096, 6144], 32, 8, 128, 64, bf, main=True)
+        # one row at Llama 3.1 8B's published context (131,072 keys) plus
+        # the fused append: 537 MB of K/V, ten times the L2
+        k1("long_131072", [131072], 32, 8, 128, 64, bf, timed=True)
         # the dense path's decode batch: the smoke prompts in a dense cache
         k4("main", [512, 2048, 4096, 6144], 6144, 32, 8, 128, bf,
            main=True)
@@ -1161,7 +1207,8 @@ def main(argv=None) -> int:
                       "replaces": repl, "launches": sum(paths.values()),
                       "launches_by_path": paths,
                       "max_abs_err": r.get("max_abs_err"),
-                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                      "ms": r.get("ms"), "cold_ms": r.get("cold_ms"),
+                      "plain_ms": r.get("plain_ms"),
                       "bound_ms": r.get("bound_ms"),
                       "bound_by": r.get("bound_by"),
                       "library_ms": r.get("library_ms")})

@@ -138,16 +138,35 @@ def _decode_plain(q, k, v, kv_pos, lengths, window, softmax_scale):
 
 _PD_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-# blocks the split kernel aims for: a few per SM of the 132 on an H100
-_TARGET_BLOCKS = 4 * 132
+# blocks the split kernel may launch when every row fills its table: two
+# waves of the three blocks that fit each of the H100's 132 SMs (a batch of
+# uneven rows leaves many blocks without keys, which exit at once)
+_TARGET_BLOCKS = 2 * 3 * 132
+# keys per tile of the split kernel (TK in csrc/paged_decode.cu)
+_TILE = 64
 
 
-def _partials(q: torch.Tensor, npg: int, KVH: int):
+def plan_splits(npg: int, B: int, KVH: int, page: int) -> Tuple[int, int]:
+    """``(splits, pages_per_split)``: each row's ``npg`` table columns cut
+    into ``splits`` runs of ``pages_per_split`` pages (the last run may be
+    shorter), one block per (run, KV head, row).  Sized from the table
+    width, B and KVH alone (no read of the lengths): full rows give at
+    most ``_TARGET_BLOCKS`` blocks (at least one run per row), and a run
+    holds whole 64-key tiles where the page size divides the tile."""
+    npg = max(1, npg)
+    pages_per_split = -(-npg // max(1, _TARGET_BLOCKS // (B * KVH)))
+    if page < _TILE and _TILE % page == 0:
+        unit = _TILE // page
+        pages_per_split = -(-pages_per_split // unit) * unit
+    pages_per_split = min(pages_per_split, npg)
+    return -(-npg // pages_per_split), pages_per_split
+
+
+def _partials(q: torch.Tensor, npg: int, KVH: int, page: int):
     """Split a row's ``npg`` pages over blocks (flash-decoding) and
     allocate the splits' (m, l, acc) partials the merge kernel reads."""
     B, H, D = q.shape
-    pages_per_split = max(1, -(-npg * B * KVH // _TARGET_BLOCKS))
-    splits = -(-npg // pages_per_split)
+    splits, pages_per_split = plan_splits(npg, B, KVH, page)
     part_m = torch.empty((B, H, splits), dtype=torch.float32,
                          device=q.device)
     part_acc = torch.empty((B, H, splits, D), dtype=torch.float32,
@@ -208,7 +227,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     ap = _int32_on(append_page, dev, B, "append_page") if append else None
     asl = _int32_on(append_slot, dev, B, "append_slot") if append else None
     splits, pages_per_split, part_m, part_l, part_acc = _partials(
-        q, npg, KVH)
+        q, npg, KVH, page)
     o = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=dev)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
@@ -275,7 +294,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if ln.device != dev:
         raise ValueError(f"flash_decode: lengths must be on {dev}")
     splits, pages_per_split, part_m, part_l, part_acc = _partials(
-        q, max(1, -(-S // _DENSE_PAGE)), KVH)
+        q, max(1, -(-S // _DENSE_PAGE)), KVH, _DENSE_PAGE)
     o = torch.empty_like(q)
     lse = torch.empty((B, H), dtype=torch.float32, device=dev)
     scale = softmax_scale if softmax_scale is not None else D ** -0.5

@@ -190,3 +190,162 @@ def test_flash_attention_tile_classes_on_card(D):
         dead = plse <= -1e29
         assert bool((lse[dead] == -1e30).all())
         assert not o.transpose(1, 2)[dead].any()
+
+
+_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (1e-5, 1e-4)}
+
+
+def _close_elementwise(o, po, dtype):
+    """chip_smoke.py's elementwise check for o in ``dtype``."""
+    atol, rtol = _TOL[dtype]
+    o, po = o.float(), po.float()
+    assert bool(((o - po).abs() <= atol + rtol * po.abs()).all())
+
+
+def _paged_case(dev, g, lengths, H, KVH, D, page, dtype, nan_tail=True):
+    """q, pools holding ``lengths`` keys per row (unused slots NaN, also
+    inside the last page when ``nan_tail``), the table and the fused
+    append's arguments."""
+    import chip_smoke
+    B, S = len(lengths), max(lengths) + 1
+    q = torch.randn(B, H, D, generator=g).to(dev, dtype)
+    kd = torch.randn(B, S, KVH, D, generator=g).to(dev, dtype)
+    vd = torch.randn(B, S, KVH, D, generator=g).to(dev, dtype)
+    kp, table = chip_smoke._pool_from_dense(kd, page, g.manual_seed(5))
+    vp, _ = chip_smoke._pool_from_dense(vd, page, g.manual_seed(5))
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if nan_tail:
+        f = torch.arange(table.shape[1] * page, device=dev)
+        r, f = torch.nonzero(f[None] > ln[:, None], as_tuple=True)
+        kp[table[r, f // page].long(), f % page] = float("nan")
+        vp[table[r, f // page].long(), f % page] = float("nan")
+    rows = torch.arange(B, device=dev)
+    kw = dict(k_new=torch.randn(B, KVH, D, generator=g).to(dev, dtype),
+              v_new=torch.randn(B, KVH, D, generator=g).to(dev, dtype),
+              append_page=table[rows, (ln // page).long()],
+              append_slot=ln % page)
+    return q, kp, vp, table, ln, kw
+
+
+def _check_paged(q, kp, vp, table, ln, kw, dtype):
+    from repro_torch.kernels.flash_decode import (paged_flash_decode,
+                                                  paged_flash_decode_plain)
+    kp2, vp2 = kp.clone(), vp.clone()
+    before = paged_flash_decode.launches
+    o, lse = paged_flash_decode(q, kp, vp, table, ln, **kw)
+    po, plse = paged_flash_decode_plain(q, kp2, vp2, table, ln, **kw)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    assert torch.isfinite(o.float()).all()
+    _close_elementwise(o, po, dtype)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+    # the fused append stored the bytes the plain version stores
+    assert torch.equal(kp.nan_to_num(7.0), kp2.nan_to_num(7.0))
+    assert torch.equal(vp.nan_to_num(7.0), vp2.nan_to_num(7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 16, 32, 64, 128])
+def test_paged_decode_nan_slots_inside_a_tile_on_card(page):
+    """K1 in bf16 at Llama-3-8B's heads: rows whose lengths are multiples
+    of none of the page sizes leave NaN in the last page's unused slots,
+    inside the kernel's 64-key tiles; they must stay out of every product
+    (zero-filled, never multiplied by zero)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(6)
+    _check_paged(*_paged_case(dev, g, [3001, 700, 45], 32, 8, 128, page,
+                              torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_paged_decode_append_slot_in_a_later_split_on_card(G, D, dtype):
+    """The appended key lies in a tile that a block other than the
+    writing one (split 0) loads, and the pool's slot holds NaN before the
+    call: every block must take the row from k_new/v_new."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import plan_splits
+    g = torch.Generator().manual_seed(7)
+    KVH, page = 2, 16
+    lengths = [1000, 333]
+    q, kp, vp, table, ln, kw = _paged_case(dev, g, lengths, G * KVH, KVH,
+                                           D, page, dtype)
+    _, pps = plan_splits(table.shape[1], len(lengths), KVH, page)
+    assert min(lengths) // page >= pps          # not in split 0's pages
+    kp[kw["append_page"], kw["append_slot"]] = float("nan")
+    vp[kw["append_page"], kw["append_slot"]] = float("nan")
+    _check_paged(q, kp, vp, table, ln, kw, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,G,window,offset", [
+    (203, 4, 50, 7), (1000, 8, 300, 33), (77, 1, 10, 0)])
+def test_dense_decode_ragged_window_offset_on_card(S, G, window, offset,
+                                                   dtype):
+    """K4 over a cache whose S is not a multiple of the 64-key tile, with
+    a window and a cache offset together; the slots outside the window
+    hold NaN; a row with no valid key reads o = 0 and lse = -1e30."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    g = torch.Generator().manual_seed(8)
+    KVH, D = 2, 128
+    q = torch.randn(3, G * KVH, D, generator=g).to(dev, dtype)
+    k = torch.randn(3, S, KVH, D, generator=g).to(dev, dtype)
+    v = torch.randn(3, S, KVH, D, generator=g).to(dev, dtype)
+    ln = torch.tensor([S + offset, 0, S // 2 + offset], dtype=torch.int32,
+                      device=dev)
+    pos = offset + torch.arange(S, device=dev)
+    ok = (pos[None] < ln[:, None]) & (pos[None] >= ln[:, None] - window)
+    k[~ok], v[~ok] = float("nan"), float("nan")
+    o, lse = flash_decode(q, k, v, ln, window=window, kv_offset=offset)
+    po, plse = flash_decode_plain(q, k, v, ln, window=window,
+                                  kv_offset=offset)
+    torch.cuda.synchronize()
+    _close_elementwise(o, po, dtype)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+    assert not o[1].any() and bool((lse[1] == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k", "v", "k_new", "v_new"])
+def test_decode_kernels_raise_on_unaligned_bf16(which):
+    """K1 and K4 copy 16 bytes at a time: a contiguous bf16 view at an
+    odd element offset raises at launch instead of faulting, and the card
+    stays usable."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+
+    def make(name, shape):
+        n = torch.Size(shape).numel()
+        shift = int(name == which)
+        buf = torch.randn(n + 1, device=dev).to(torch.bfloat16)
+        return buf[shift:shift + n].view(shape)
+
+    B, KVH, D, page, npg = 2, 2, 128, 16, 4
+    q = make("q", (B, 4 * KVH, D))
+    pools = {n: make(n, (B * npg, page, KVH, D)) for n in "kv"}
+    new = {n: make(n, (B, KVH, D)) for n in ("k_new", "v_new")}
+    table = torch.arange(B * npg, dtype=torch.int32,
+                         device=dev).reshape(B, npg)
+    ln = torch.tensor([40, 9], dtype=torch.int32, device=dev)
+    rows = torch.arange(B, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        paged_flash_decode(q, pools["k"], pools["v"], table, ln,
+                           k_new=new["k_new"], v_new=new["v_new"],
+                           append_page=table[rows, (ln // page).long()],
+                           append_slot=ln % page)
+    if which in "qkv":
+        cache = {n: make(n, (B, 64, KVH, D)) for n in "kv"}
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            flash_decode(q, cache["k"], cache["v"], ln)
+    o, _ = flash_decode(q.clone(), torch.zeros(B, 64, KVH, D, device=dev,
+                                               dtype=torch.bfloat16),
+                        torch.zeros(B, 64, KVH, D, device=dev,
+                                    dtype=torch.bfloat16), ln)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()

@@ -9,7 +9,10 @@ to the reference's tokens.  Inputs are
 made with numpy from a seed and handed to both packages.  Tolerance: fp32
 ``atol = rtol = 1e-5`` (the two sides sum in different orders).  The bf16
 tensor-core K2/K3's arithmetic is emulated in torch and held to the plain
-versions under chip_smoke.py's elementwise check.
+versions under chip_smoke.py's elementwise check; the split decode kernel
+of K1/K4 is emulated in its own order (tiles, splits, merge) and held to
+the plain versions and the Pallas kernels, and its split planner is
+checked to cover every page once.
 """
 
 import jax.numpy as jnp
@@ -27,8 +30,12 @@ from repro.kernels.flash_decode import paged_flash_decode as j_decode
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  paged_flash_prefill)
-from repro_torch.kernels.flash_decode import (POS_PAD, flash_decode,
-                                              paged_flash_decode)
+from repro_torch.kernels.flash_decode import (POS_PAD, _TARGET_BLOCKS,
+                                              _TILE, flash_decode,
+                                              flash_decode_plain,
+                                              paged_flash_decode,
+                                              paged_flash_decode_plain,
+                                              plan_splits)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -201,6 +208,233 @@ def test_flash_decode_plain_matches_pallas(lengths, S, H, KVH, D, window,
     o = ops.decode_attention(*map(torch.from_numpy, (q, k, v, ln)),
                              window=window, kv_offset=offset)
     _close(o[live], np.asarray(want_o)[live])
+
+
+# ------------------------------- the split decode kernel's order (K1, K4)
+@pytest.mark.parametrize("npg,B,KVH,page", [
+    (97, 4, 8, 64),        # the smoke's decode batch
+    (2049, 1, 8, 64),      # one row at 131,072 keys
+    (1, 1, 1, 8), (3, 1, 1, 8), (40, 3, 2, 8), (19, 2, 2, 16),
+    (7, 1, 4, 32), (5, 64, 8, 64), (1000, 256, 8, 128), (96, 1, 1, 48),
+])
+def test_plan_splits_covers_every_page_once(npg, B, KVH, page):
+    """The split planner (a function of the table width, B and KVH only)
+    cuts a row's pages into runs that cover each page exactly once, every
+    run non-empty, and keeps full rows near the block target."""
+    splits, pps = plan_splits(npg, B, KVH, page)
+    assert splits >= 1 and pps >= 1
+    runs = [range(s * pps, min(npg, (s + 1) * pps)) for s in range(splits)]
+    assert all(len(r) > 0 for r in runs)
+    assert sorted(j for r in runs for j in r) == list(range(npg))
+    assert splits * B * KVH <= max(_TARGET_BLOCKS, B * KVH)
+    if page < _TILE and _TILE % page == 0 and splits > 1:
+        assert pps * page % _TILE == 0        # whole 64-key tiles per run
+
+
+def _split_decode_emulation(q, k, v, lengths, *, table=None, page_pos=None,
+                            window=None, kv_offset=0, k_new=None,
+                            v_new=None, append_page=None, append_slot=None):
+    """``csrc/paged_decode.cu`` in torch, in the kernel's order.  Paged
+    (``table`` given): k/v are the pools as a block finds them, before the
+    append lands; dense: the caches (B, S, KVH, D), cut into virtual pages
+    of 64.  For each (row, KV head, split of ``plan_splits``): the split's
+    keys cut to the valid positions where positions follow the flat index;
+    64-key tiles whose rows without a valid key are zero-filled (the
+    pool's unused slots may hold NaN) and whose append row is patched from
+    k_new/v_new after the tile lands; scores in log2 units with the scale
+    folded into q; per tile one max, one rescale and exp2 of the scores;
+    then the merge of the splits by their maxima.  Returns ``(o, lse)``."""
+    B, H, D = q.shape
+    KVH = k.shape[-2]
+    G = H // KVH
+    dense = table is None
+    page = _TILE if dense else k.shape[1]
+    S = k.shape[1] if dense else None
+    npg = -(-S // page) if dense else table.shape[1]
+    append = k_new is not None
+    length = (lengths + int(append)).tolist()
+    splits, pps = plan_splits(npg, B, KVH, page)
+    qs = q.float() * (D ** -0.5 * np.log2(np.e))
+    NEG = float(ref.NEG_INF)
+    o = torch.zeros(B, H, D)
+    lse = torch.full((B, H), NEG)
+    for b in range(B):
+        L = length[b]
+        for h in range(KVH):
+            qh = qs[b, h * G:(h + 1) * G]                     # (G, D)
+            parts = []
+            for s in range(splits):
+                f0 = s * pps * page
+                f1 = min(npg, (s + 1) * pps) * page
+                if dense:
+                    f1 = min(f1, S)
+                if dense or page_pos is None:
+                    off = kv_offset if dense else 0
+                    if window is not None and L - window - off > f0:
+                        f0 += (L - window - off - f0) // _TILE * _TILE
+                    f1 = min(f1, L - off)
+                m = torch.full((G,), NEG)
+                l = torch.zeros(G)
+                acc = torch.zeros(G, D)
+                for t0 in range(f0, f1, _TILE):
+                    f = torch.arange(t0, t0 + _TILE)
+                    inside = f < f1
+                    fc = torch.where(inside, f, 0)
+                    if dense:
+                        pos = kv_offset + f
+                        kt, vt = k[b, fc.clamp(max=S - 1), h], \
+                            v[b, fc.clamp(max=S - 1), h]
+                        new = torch.zeros(_TILE, dtype=torch.bool)
+                    else:
+                        j, t = fc // page, fc % page
+                        base = (page_pos[b, j] if page_pos is not None
+                                else j * page)
+                        pos = base + t
+                        phys = table[b, j].long()
+                        kt, vt = k[phys, t, h], v[phys, t, h]
+                        new = ((phys == int(append_page[b])) &
+                               (t == int(append_slot[b])) if append else
+                               torch.zeros(_TILE, dtype=torch.bool))
+                    ok = inside & (pos < L)
+                    if window is not None:
+                        ok &= pos >= L - window
+                    zero = torch.zeros((), dtype=kt.dtype)
+                    kt = torch.where(ok[:, None], kt, zero)   # zero-fill
+                    vt = torch.where(ok[:, None], vt, zero)
+                    patch = (ok & new)[:, None]               # after landing
+                    if append:
+                        kt = torch.where(patch, k_new[b, h], kt)
+                        vt = torch.where(patch, v_new[b, h], vt)
+                    sc = torch.where(ok[:, None], kt.float() @ qh.T, NEG)
+                    m_new = torch.maximum(m, sc.max(0).values)
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.where(ok[:, None], torch.exp2(sc - m_new), 0.0)
+                    l = l * alpha + p.sum(0)
+                    acc = acc * alpha[:, None] + p.T @ vt.float()
+                    m = m_new
+                parts.append((m, l, acc))
+            ms = torch.stack([pm for pm, _, _ in parts])      # (splits, G)
+            ls = torch.stack([pl for _, pl, _ in parts])
+            accs = torch.stack([pa for _, _, pa in parts])
+            live = ls > 0
+            M = torch.where(live, ms, NEG).max(0).values
+            c = torch.where(live, torch.exp2(ms - M), 0.0)
+            Lt = (ls * c).sum(0)
+            A = (accs * c[:, :, None]).sum(0)
+            alive = Lt > 0
+            o[b, h * G:(h + 1) * G] = torch.where(
+                alive[:, None], A / Lt.clamp_min(1e-30)[:, None], 0.0)
+            lse[b, h * G:(h + 1) * G] = torch.where(
+                alive, (M + torch.log2(Lt.clamp_min(1e-30))) * np.log(2.0),
+                NEG)
+    return o, lse
+
+
+@pytest.mark.parametrize("lengths,pad_rows,H,KVH,D,page,window,extra", [
+    ([130, 0, 5], (1,), 4, 4, 32, 8, None, 0),     # padded row, group 1
+    ([300, 17], (), 4, 2, 32, 16, 40, 2),          # window + POS_PAD columns
+    ([200, 3, 0], (2,), 8, 2, 128, 32, None, 1),   # head_dim 128, group 4
+    ([700, 64], (), 16, 2, 32, 64, None, 0),       # group 8, many splits
+    ([500], (), 8, 4, 128, 128, 130, 0),           # page 128, window
+])
+def test_split_decode_order_matches_plain_and_pallas(lengths, pad_rows, H,
+                                                     KVH, D, page, window,
+                                                     extra):
+    """K1's order (per-tile max, one rescale per tile, zero-filled invalid
+    rows, the append row patched after its tile lands, the merge of the
+    splits) against the plain version on pools whose unused slots and
+    append slot hold NaN, and against the Pallas paged_append_attend
+    (interpret mode) on finite pools.  The appended key falls in a split
+    other than the one that writes it."""
+    rng = np.random.default_rng(7)
+    B = len(lengths)
+    n_pages = 3 * B * (max(lengths) // page + 2)
+    kp, vp = _pools(rng, n_pages, page, KVH, D)
+    bt, npg = _tables(rng, lengths, page, n_pages, extra_cols=extra)
+    for r in pad_rows:
+        bt[r] = n_pages
+    page_pos = np.concatenate(
+        [np.broadcast_to(np.arange(npg, dtype=np.int32) * page, (B, npg)),
+         np.full((B, extra), POS_PAD, np.int32)], 1).astype(np.int32)
+    ln = np.asarray(lengths, np.int32)
+    ap = bt[np.arange(B), ln // page].astype(np.int32)
+    sl = (ln % page).astype(np.int32)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kn = rng.standard_normal((B, KVH, D)).astype(np.float32)
+    vn = rng.standard_normal((B, KVH, D)).astype(np.float32)
+    live = [r for r in range(B) if r not in pad_rows]
+    splits, pps = plan_splits(bt.shape[1], B, KVH, page)
+    assert max(ln[live] // page) >= pps       # append outside split 0
+    T = torch.from_numpy
+    pp = T(page_pos) if extra else None
+    # NaN in every pool slot no live row reads, and in the append slots
+    read = np.zeros(kp.shape[:2], bool)
+    for r in live:
+        for j in range(bt.shape[1]):
+            pos = page_pos[r, j] + np.arange(page)
+            ok = pos < ln[r] + 1
+            if window is not None:
+                ok &= pos >= ln[r] + 1 - window
+            read[bt[r, j]] |= ok
+    read[ap[live], sl[live]] = False
+    kn_pool, vn_pool = kp.copy(), vp.copy()
+    kn_pool[~read] = np.nan
+    vn_pool[~read] = np.nan
+    kw = dict(window=window, page_pos=pp, k_new=T(kn), v_new=T(vn),
+              append_page=T(ap), append_slot=T(sl))
+    emu_o, emu_l = _split_decode_emulation(T(q), T(kn_pool), T(vn_pool),
+                                           T(ln), table=T(bt), **kw)
+    want_o, want_l = paged_flash_decode_plain(
+        T(q), T(kn_pool.copy()), T(vn_pool.copy()), T(bt), T(ln), **kw)
+    _close(emu_o[live], want_o[live])
+    _close(emu_l[live], want_l[live])
+    j_o, j_l, _, _ = j_append(
+        *map(jnp.asarray, (q, kp, vp, bt, ln, ap, sl, kn, vn, page_pos)),
+        window=window, with_lse=True, impl="interpret")
+    emu_o, emu_l = _split_decode_emulation(T(q), T(kp), T(vp), T(ln),
+                                           table=T(bt), **kw)
+    _close(emu_o[live], np.asarray(j_o)[live])
+    _close(emu_l[live], np.asarray(j_l)[live])
+
+
+@pytest.mark.parametrize("lengths,S,H,KVH,D,window,offset", [
+    ([300, 129], 512, 8, 2, 128, 50, 0),    # window, group 4, head_dim 128
+    ([90, 20], 64, 4, 4, 32, None, 30),     # kv_offset (cache starts at 30)
+    ([70, 45], 256, 8, 1, 32, 16, 10),      # window + offset, group 8
+    ([203, 0, 150], 203, 8, 2, 128, None, 0),  # S not a multiple of 64
+    ([190, 77], 203, 4, 2, 32, 70, 7),      # ragged S, window, offset
+])
+def test_split_decode_order_dense_matches_plain_and_pallas(lengths, S, H, KVH,
+                                                           D, window, offset):
+    """K4's order (the same split kernel over virtual pages of a dense
+    cache) against the plain version with NaN in every slot outside the
+    valid window, and against the Pallas flash_decode (interpret mode)
+    where its tiling takes S."""
+    rng = np.random.default_rng(8)
+    B = len(lengths)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    ln = np.asarray(lengths, np.int32)
+    pos = offset + np.arange(S)
+    ok = pos[None] < ln[:, None]
+    if window is not None:
+        ok &= pos[None] >= ln[:, None] - window
+    kq, vq = k.copy(), v.copy()
+    kq[~ok], vq[~ok] = np.nan, np.nan
+    T = torch.from_numpy
+    kw = dict(window=window, kv_offset=offset)
+    emu_o, emu_l = _split_decode_emulation(T(q), T(kq), T(vq), T(ln), **kw)
+    want_o, want_l = flash_decode_plain(T(q), T(kq), T(vq), T(ln), **kw)
+    _close(emu_o, want_o)
+    _close(emu_l, want_l)
+    assert not emu_o[ln == 0].any()
+    if S % 64 == 0:
+        j_o, j_l = j_dense_decode(*map(jnp.asarray, (q, k, v, ln)),
+                                  window=window, kv_offset=offset,
+                                  with_lse=True, interpret=True)
+        _close(emu_o, j_o)
+        _close(emu_l, j_l)
 
 
 def test_dense_path_tokens_match_reference(reduced_params_cache):

@@ -1,0 +1,179 @@
+#!/usr/bin/env python3
+"""A/B builds of the decode kernels K1/K4 (``csrc/paged_decode.cu``) on one
+card.
+
+    python3 tools/decode_variants.py [RUN ...]
+
+A RUN is ``variant@target``: a build of the kept source with some of its
+tuning constants replaced (VARIANTS below), run with the split planner's
+block target ``flash_decode._TARGET_BLOCKS`` set to ``target``.  Every
+variant builds with nvcc into ``src/repro_torch/kernels/build/variants/``
+(all at once) and is loaded in place of the kept library.  Each run checks
+K1 and K4 at the smoke's main shapes (Llama-3-8B heads, rows of
+512/2048/4096/6144 keys) and K1 at one row of 131,072 keys against their
+plain versions under chip_smoke.py's elementwise check, then prints their
+device times (torch.profiler, as chip_smoke.py times them; the split and
+merge kernels also apart) as one JSON line.  Runs go in the order given,
+so that turns such as kept, variant, variant, kept share one call and one
+card.  Exits nonzero if a run disagrees with the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+
+# constexpr values replaced in each variant (the kept source otherwise)
+VARIANTS = {
+    "kept": {},
+    # three ring stages (96 KB): two blocks per SM instead of three
+    "stages3": {"RING_BYTES": "96 * 1024", "MIN_BLOCKS": "2"},
+    # 256 threads a block, two blocks per SM
+    "threads256": {"NT": "256", "MIN_BLOCKS": "2"},
+    # 32-key tiles, four stages in the same 64 KB
+    "tile32": {"TK": "32"},
+    # the merge kernel with one group of head_dim threads per block
+    "merge1": {"MERGE_GROUPS": "1"},
+}
+DEFAULT_RUNS = ["kept@792", "merge1@792", "kept@264", "kept@396",
+                "kept@528", "kept@660", "kept@924", "stages3@528",
+                "stages3@264", "threads256@792", "tile32@792", "merge1@264",
+                "kept@792"]
+
+
+def _build_variants(names):
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "paged_decode.cu").read_text()
+    out = _build.BUILD / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        text = src
+        for const, value in VARIANTS[name].items():
+            text, n = re.subn(rf"constexpr int {const} = [^;]+;",
+                              f"constexpr int {const} = {value};", text)
+            if n != 1:
+                raise RuntimeError(f"{name}: constant {const} not found")
+        cu = out / f"paged_decode_{name}.cu"
+        cu.write_text(text)
+        so = out / f"lib_{name}.so"
+        log = open(out / f"{name}.log", "w")
+        cmd = [_build._nvcc(), _build.ARCH, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+               str(_build.CSRC), "-o", str(so), str(cu)]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), log, so)
+    libs = {}
+    for name, (proc, log, so) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc:
+            raise RuntimeError(f"nvcc failed for {name}: "
+                               f"{(out / f'{name}.log').read_text()[-4000:]}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def _by_kernel(fn, reps: int = 20) -> dict:
+    """Device ms per call of each kernel a call launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        for k in ("decode_split_kernel", "decode_merge_kernel"):
+            if k in ev.key and us:
+                out[k] = out.get(k, 0.0) + us / reps / 1e3
+    return out
+
+
+def main(argv=None) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("decode_variants: needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_decode as fd
+    runs = (argv if argv is not None else sys.argv[1:]) or DEFAULT_RUNS
+    runs = [r.split("@") for r in runs]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
+          flush=True)
+    libs = _build_variants(sorted({v for v, _ in runs}))
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, bf)
+
+    def paged(lengths):
+        B, S = len(lengths), max(lengths) + 1
+        q, kd, vd = randn(B, 32, 128), randn(B, S, 8, 128), randn(B, S, 8, 128)
+        g2 = torch.Generator().manual_seed(2)
+        kp, table = chip_smoke._pool_from_dense(kd, 64, g2)
+        vp, _ = chip_smoke._pool_from_dense(vd, 64, g2.manual_seed(2))
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        rows = torch.arange(B, device=dev)
+        kw = dict(k_new=randn(B, 8, 128), v_new=randn(B, 8, 128),
+                  append_page=table[rows, (ln // 64).long()],
+                  append_slot=ln % 64)
+        want = fd.paged_flash_decode_plain(q, kp.clone(), vp.clone(), table,
+                                           ln, **kw)
+        return (lambda: fd.paged_flash_decode(q, kp, vp, table, ln, **kw),
+                want)
+
+    def dense(lengths, S):
+        B = len(lengths)
+        q, k, v = randn(B, 32, 128), randn(B, S, 8, 128), randn(B, S, 8, 128)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        return (lambda: fd.flash_decode(q, k, v, ln),
+                fd.flash_decode_plain(q, k, v, ln))
+
+    smoke = [512, 2048, 4096, 6144]
+    cases = {"k1_main": paged(smoke), "k4_main": dense(smoke, 6144),
+             "k1_long_131072": paged([131072])}
+    bad = []
+    for variant, target in runs:
+        _build._libs["paged_decode"] = libs[variant]
+        fd._TARGET_BLOCKS = int(target)
+        res = {"variant": variant, "target": int(target),
+               "splits": {"k1_main": fd.plan_splits(97, 4, 8, 64)[0],
+                          "k4_main": fd.plan_splits(96, 4, 8, 64)[0],
+                          "k1_long_131072": fd.plan_splits(2049, 1, 8, 64)[0]}}
+        for name, (fn, (po, pl)) in cases.items():
+            o, lse = fn()
+            torch.cuda.synchronize()
+            ratio = chip_smoke.close_ratio(o, po, 1e-3, 1e-2)
+            lse_err = chip_smoke.max_err(lse, pl)
+            if not (ratio <= 1.0 and lse_err <= 1e-4):
+                bad.append(f"{variant}@{target}/{name}")
+            res[name] = {"ms": chip_smoke.time_ms(fn)[0],
+                         "by_kernel_ms": _by_kernel(fn), "o_ratio": ratio,
+                         "lse_err": lse_err}
+        print(json.dumps(res), flush=True)
+    print(json.dumps({"disagree": bad}))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
