@@ -8,8 +8,8 @@ Phases, each printing JSON lines:
                build of every kernel from ``src/repro_torch/kernels/csrc``;
   2. kernels — each hand-written kernel against its plain PyTorch version
                on the card, at the main paths' shapes and at edge cases,
-               with kernel, plain and library times (K1 and K4 also one
-               call at a time with a cold L2, and K1 over one row of
+               with kernel, plain and library times (K1, K4 and K5 also
+               one call at a time with a cold L2, and K1 over one row of
                131,072 keys);
   3. serve   — Llama-3-8B (bf16, 32 layers) and then Mamba-2-1.3B (bf16,
                48 layers), each at full width with seeded weights, serve
@@ -33,8 +33,9 @@ and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
 subset; with no arguments phases 1-5 run.  ``--only profile`` adds a
 torch.profiler breakdown of one full-width prefill chunk and one decode
-tick of each served model (kernel time by group, and the card's idle
-share); it fails where a window shows no time for a kernel it must run.
+tick of each served model (kernel time by group and by aten op, and the
+card's idle share); it fails where a window shows no time for a kernel it
+must run.
 """
 
 from __future__ import annotations
@@ -623,6 +624,8 @@ def phase_kernels(full_shapes: bool = True):
                 lambda: ssd_scan_plain(x, dt, A, Bm, Cm, h0=hz,
                                        chunk=chunk),
                 None, bms, by)
+            times.update(_cold_times(
+                lambda: ssd_scan(x, dt, A, Bm, Cm, h0=hz, chunk=chunk)))
         record("ssd_scan", case, dtype, errs, main, times, planted,
                tol_used={"y_atol": t["atol"], "y_rtol": t["rtol"],
                          "h_atol": h_tol["atol"], "h_rtol": h_tol["rtol"]})
@@ -1080,6 +1083,21 @@ def _kernel_groups(prof) -> dict:
     return groups, dict(top)
 
 
+def _device_ms_by_op(prof, n: int = 10) -> dict:
+    """Device time (ms) of the kernels each aten op launched itself, the
+    ``n`` largest: the elementwise work named by op, where its kernels'
+    names are templates shared by many ops.  The port's own kernels run
+    under no aten op."""
+    ops = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us and ev.device_type.name == "CPU" and ev.key.startswith("aten::"):
+            ops[ev.key] = ops.get(ev.key, 0.0) + us / 1e3
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1])[:n])
+
+
 def _profile(model: str, windows) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1095,11 +1113,13 @@ def _profile(model: str, windows) -> None:
             wall = (time.perf_counter() - t0) * 1e3 / reps
         groups, others = _kernel_groups(prof)
         groups = {k: v / reps for k, v in groups.items()}
+        ops = _device_ms_by_op(prof)
         busy = sum(groups.values())
         emit(phase="profile", model=model, window=name, wall_ms=wall,
              kernel_ms=groups, busy_ms=busy,
              idle_share=(1.0 - busy / wall) if busy else None,
-             top_other_ms={k: v / reps for k, v in others.items()})
+             top_other_ms={k: v / reps for k, v in others.items()},
+             top_ops_ms={k: v / reps for k, v in ops.items()})
         check(all(groups.get(g, 0.0) > 0.0 for g in need),
               f"profile {model}/{name}: no device time under {need}: "
               f"{groups}")

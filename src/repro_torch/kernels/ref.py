@@ -244,26 +244,27 @@ def ssd_ref(x: torch.Tensor,              # (B, S, H, P) per-head inputs
 
 
 def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
-                    return_state: bool = False):
+                    return_state: bool = False,
+                    dtype: torch.dtype = torch.float32):
     """Chunked SSD (quadratic within a chunk, recurrent across chunks) —
     matches ``ssd_ref``; the algorithm of the CUDA kernel K5.
 
     Written as explicit steps with the heads split as (G, H/G) so that B
     and C are never repeated per head and no (B, nc, L, L, H, P) tensor is
     formed: the largest intermediates are the per-head decay matrix and
-    scores, (B, nc, G, H/G, L, L)."""
+    scores, (B, nc, G, H/G, L, L).  Computes in ``dtype``; y comes back in
+    x's dtype, the state in ``dtype``."""
     B_, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     R = H // G
     assert S % chunk == 0, (S, chunk)
     nc, L = S // chunk, chunk
-    f32 = torch.float32
-    xf = x.float().reshape(B_, nc, L, G, R, P)
-    dtf = dt.float().reshape(B_, nc, L, G, R)
-    Bf = Bm.float().reshape(B_, nc, L, G, N)
-    Cf = Cm.float().reshape(B_, nc, L, G, N)
+    xf = x.to(dtype).reshape(B_, nc, L, G, R, P)
+    dtf = dt.to(dtype).reshape(B_, nc, L, G, R)
+    Bf = Bm.to(dtype).reshape(B_, nc, L, G, N)
+    Cf = Cm.to(dtype).reshape(B_, nc, L, G, N)
 
-    a = dtf * A.float().reshape(G, R)                          # <= 0
+    a = dtf * A.to(dtype).reshape(G, R)                        # <= 0
     a_cum = torch.cumsum(a, dim=2)                             # inclusive
     a_total = a_cum[:, :, -1]                                  # (B,nc,G,R)
     ac = a_cum.permute(0, 1, 3, 4, 2)                          # (B,nc,G,R,L)
@@ -286,8 +287,8 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
     states = torch.einsum("bclgrp,bclgn->bcgrpn", xf * w[..., None], Bf)
 
     # inter-chunk recurrence over the chunk states
-    h = (torch.zeros((B_, G, R, P, N), dtype=f32, device=x.device)
-         if h0 is None else h0.float().reshape(B_, G, R, P, N))
+    h = (torch.zeros((B_, G, R, P, N), dtype=dtype, device=x.device)
+         if h0 is None else h0.to(dtype).reshape(B_, G, R, P, N))
     h_prev = []
     for c in range(nc):
         h_prev.append(h)                                       # state BEFORE c

@@ -89,6 +89,67 @@ def test_ssd_scan_kernel_on_card():
         torch.testing.assert_close(h, ph, atol=1e-4, rtol=1e-4)
 
 
+# (P, N) pairs K5 is built for: repro_torch.kernels.ssd_scan.SHAPES
+_SSD_SHAPES = [(64, 128), (32, 64), (16, 32), (16, 16)]
+
+
+def _ssd_case(dev, g, B, S, H, P, G, N):
+    """bf16 x, B and C as slices of one fused projection, dt and A in the
+    model's ranges, and a handed-in state."""
+    d_in, gn = H * P, G * N
+    xbc = torch.randn(B, S, d_in + 2 * gn, generator=g).to(dev,
+                                                          torch.bfloat16)
+    x = xbc[..., :d_in].reshape(B, S, H, P)
+    Bm = xbc[..., d_in:d_in + gn].reshape(B, S, G, N)
+    Cm = xbc[..., d_in + gn:].reshape(B, S, G, N)
+    dt = torch.exp(torch.empty(B, S, H).uniform_(-6.9, -2.3,
+                                                 generator=g)).to(dev)
+    A = -torch.empty(H).uniform_(1.0, 16.0, generator=g).to(dev)
+    h0 = (0.3 * torch.randn(B, H, P, N, generator=g)).to(dev)
+    return x, dt, A, Bm, Cm, h0
+
+
+def _check_ssd(x, dt, A, Bm, Cm, h0, chunk):
+    """K5 against its plain version under chip_smoke.py's check: y
+    elementwise at bf16's 1e-3 / 1e-2, h_final at 1e-4 / 1e-4."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    before = ssd_scan.launches
+    y, h = ssd_scan(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+    py, ph = ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert torch.isfinite(y.float()).all()
+    _bf16_close(y, py)
+    torch.testing.assert_close(h, ph, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 32, 64, 256])
+@pytest.mark.parametrize("P,N", _SSD_SHAPES)
+def test_ssd_scan_bf16_shapes_on_card(P, N, chunk):
+    """bf16 K5 at every (P, N) it is built for and at chunks of 1 to 256
+    tokens, with a ragged last chunk, two batch rows, G = 2 and x/B/C
+    read in place from a fused projection."""
+    dev = _card()
+    from repro_torch.kernels.ssd_scan import SHAPES
+    assert sorted(SHAPES) == sorted(_SSD_SHAPES)
+    g = torch.Generator().manual_seed(10)
+    S = 37 if chunk == 1 else 2 * chunk + 29
+    _check_ssd(*_ssd_case(dev, g, 2, S, 4, P, 2, N), chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [True, False])
+def test_ssd_scan_bf16_groups4_on_card(h0):
+    """bf16 K5 with G = 4 groups of four heads at the Mamba-2 head shape
+    (P 64, N 128), a ragged last chunk, with and without a handed-in
+    state."""
+    dev = _card()
+    g = torch.Generator().manual_seed(11)
+    x, dt, A, Bm, Cm, hz = _ssd_case(dev, g, 1, 700, 16, 64, 4, 128)
+    _check_ssd(x, dt, A, Bm, Cm, hz if h0 else None, 128)
+
+
 def _bf16_close(o, po):
     """chip_smoke.py's elementwise check for bf16 o."""
     o, po = o.float(), po.float()

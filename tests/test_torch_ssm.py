@@ -6,7 +6,11 @@ causal conv to the reference's, and ``mamba_block`` to the reference's in
 prefill, decode and across CDSP chunks (conv window and SSD state handed
 over).  Inputs are made with numpy from a seed and handed to both
 packages.  Tolerance: fp32 ``atol = rtol = 1e-4`` (the two sides sum in
-different orders).
+different orders).  The arithmetic of the bf16 tensor-core SSD scan
+(``tools/ssd_scan_tc.cu``, a candidate for K5) is emulated in torch and
+held to the plain version and the Pallas scan under chip_smoke.py's K5
+check (y 1e-3 / 1e-2 after the bf16 rounding, h_final
+1e-4 / 1e-4).
 """
 
 import jax
@@ -200,3 +204,124 @@ def test_mamba_block_chunk_handoff(reduced_params_cache):
     mono, mc = mamba_block(torch.from_numpy(x), tp, cfg, CPU_CTX, "prefill")
     _close(torch.cat(outs, dim=1), mono)
     _cache_close(tc, mc)
+
+
+# ------------- the tensor-core SSD scan's arithmetic (tools/ssd_scan_tc.cu)
+def _split(a, parts=2):
+    """fp32 ``a`` as the kernel enters it into bf16 products: a bf16 head
+    and (``parts`` 2) the bf16 rounding of what the head left out."""
+    out = []
+    for _ in range(parts):
+        out.append(a.bfloat16().float())
+        a = a - out[-1]
+    return out
+
+
+def _k5_tc_emulation(x, dt, A, Bm, Cm, h0, chunk, *, score_parts=2):
+    """The bf16 tensor-core scan's order and roundings in torch (fp32 products of
+    bf16 operands).  Rows past S are zeros with dt = 0.  Per chunk:
+    a_cum = cumsum(dt A); the chunk state (w x)^T B with w x as a bf16
+    head plus tail (w_j = exp(a_total - a_cum_j) dt_j); the pass over
+    chunks in fp32; C B^T from the bf16 rows; the scores
+    S_ij = (C B^T)_ij exp(a_cum_i - a_cum_j) dt_j with keys j > i selected
+    out before the exp (in 64-key tiles below the row's own, the decay as
+    exp(a_cum_i - a_cum_r) exp(a_cum_r - a_cum_j), r the tile's last key),
+    entering S x as a head plus (``score_parts`` 2) a tail; C h_prev^T
+    with h_prev as a head plus tail, the row factor exp(a_cum_i) applied
+    to the fp32 sum; y rounded once to x's dtype."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    pad = (-S) % chunk
+
+    def zpad(a):
+        return torch.cat([a, a.new_zeros((Bsz, pad) + a.shape[2:])], 1)
+
+    x, dt, Bm, Cm = zpad(x), zpad(dt), zpad(Bm), zpad(Cm)
+    nc, L = (S + pad) // chunk, chunk
+    xf = x.float().reshape(Bsz, nc, L, H, P)
+    dtf = dt.float().reshape(Bsz, nc, L, H)
+    Bf = Bm.float().reshape(Bsz, nc, L, G, N).repeat_interleave(H // G, 3)
+    Cf = Cm.float().reshape(Bsz, nc, L, G, N).repeat_interleave(H // G, 3)
+    a_cum = torch.cumsum(dtf * A.float(), dim=2)              # (B,nc,L,H)
+    a_tot = a_cum[:, :, -1]
+    wx = xf * (torch.exp(a_tot[:, :, None] - a_cum) * dtf)[..., None]
+    states = sum(torch.einsum("bclhp,bclhn->bchpn", t, Bf)
+                 for t in _split(wx))
+    h = (torch.zeros(Bsz, H, P, N) if h0 is None else h0.float())
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * torch.exp(a_tot[:, c])[..., None, None] + states[:, c]
+    ac = a_cum.permute(0, 1, 3, 2)                            # (B,nc,H,L)
+    dtk = dtf.permute(0, 1, 3, 2)[..., None, :]
+    causal = torch.tril(torch.ones(L, L, dtype=torch.bool))
+    seg = torch.where(causal, ac[..., :, None] - ac[..., None, :], 0.0)
+    cb = torch.einsum("bcihn,bcjhn->bchij", Cf, Bf)
+    s = torch.where(causal, cb * torch.exp(seg) * dtk, 0.0)
+    # 64-key tiles below the row's own: exp(a_i - a_r) exp(a_r - a_j) with
+    # r the tile's last key
+    t = torch.arange(L) // 64
+    ar = ac[..., torch.clamp(t * 64 + 63, max=L - 1)]          # (..., L) by j
+    below = t[:, None] > t[None, :]
+    s = torch.where(below, cb * torch.exp(ac[..., :, None] - ar[..., None, :])
+                    * (torch.exp(ar - ac) * dtk[..., 0, :])[..., None, :], s)
+    y = sum(torch.einsum("bcihn,bchpn->bcihp", Cf, t)
+            for t in _split(torch.stack(h_prev, 1))) \
+        * torch.exp(a_cum)[..., None]
+    y = y + sum(torch.einsum("bchij,bcjhp->bcihp", t, xf)
+                for t in _split(s, score_parts))
+    return y.reshape(Bsz, nc * L, H, P)[:, :S].to(x.dtype), h
+
+
+def _k5_case(seed=7, S=1024, H=4, P=64, G=1, N=128, chunk=256):
+    """bf16 x/B/C, dt, A and h0 drawn as chip_smoke.py's K5 cases draw
+    them (dt = exp(U(-6.9, -2.3)), A = -U(1, 16), h0 = 0.3 N(0, 1)), from
+    a numpy seed."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    x, Bm, Cm = (torch.from_numpy(a).bfloat16()
+                 for a in (f(1, S, H, P), f(1, S, G, N), f(1, S, G, N)))
+    dt = torch.from_numpy(np.exp(rng.uniform(-6.9, -2.3, (1, S, H)))
+                          .astype(np.float32))
+    A = torch.from_numpy(-rng.uniform(1.0, 16.0, H).astype(np.float32))
+    h0 = torch.from_numpy(0.3 * f(1, H, P, N))
+    return x, dt, A, Bm, Cm, h0, chunk
+
+
+def _k5_ratios(got, want):
+    """chip_smoke.py's K5 check: (y ratio at bf16's 1e-3 / 1e-2, h_final
+    ratio at 1e-4 / 1e-4); each passes at <= 1."""
+    def ratio(g, w, atol, rtol):
+        g, w = g.float(), w.float()
+        return float(((g - w).abs() / (atol + rtol * w.abs())).max())
+    return (ratio(got[0], want[0], 1e-3, 1e-2),
+            ratio(got[1], want[1], 1e-4, 1e-4))
+
+
+def test_k5_tensor_core_arithmetic_fits_the_smoke_check():
+    """The bf16 tensor-core scan's arithmetic (C B^T from the bf16 rows; the scores, w x
+    and h_prev each as a bf16 head plus tail) against the plain version
+    and the reference's Pallas scan in interpret mode, under
+    chip_smoke.py's unchanged K5 check."""
+    x, dt, A, Bm, Cm, h0, chunk = case = _k5_case()
+    got = _k5_tc_emulation(*case)
+    assert torch.isfinite(got[0].float()).all()
+    want = ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+    assert max(_k5_ratios(got, want)) <= 1.0
+    bf16 = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    jy, jh = j_ssd_scan(bf16(x), jnp.asarray(dt.numpy()),
+                        jnp.asarray(A.numpy()), bf16(Bm), bf16(Cm),
+                        h0=jnp.asarray(h0.numpy()), chunk=chunk,
+                        interpret=True)
+    pallas = (torch.tensor(np.asarray(jy.astype(jnp.float32))),
+              torch.tensor(np.asarray(jh)))
+    assert max(_k5_ratios(got, pallas)) <= 1.0
+
+
+def test_k5_one_bf16_rounding_of_the_scores_misses_the_smoke_check():
+    """Why the bf16 tensor-core scan keeps the scores' tail: rounded once to bf16, the
+    decay-weighted scores leave y outside the check."""
+    x, dt, A, Bm, Cm, h0, chunk = case = _k5_case()
+    got = _k5_tc_emulation(*case, score_parts=1)
+    want = ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+    assert _k5_ratios(got, want)[0] > 1.0

@@ -20,15 +20,14 @@ card.  Exits nonzero if a run disagrees with the plain version.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
-import re
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+
+import nvcc_variants as nv  # noqa: E402  (tools/, beside this script)
 
 # constexpr values replaced in each variant (the kept source otherwise)
 VARIANTS = {
@@ -48,61 +47,6 @@ DEFAULT_RUNS = ["kept@792", "merge1@792", "kept@264", "kept@396",
                 "kept@792"]
 
 
-def _build_variants(names):
-    from repro_torch.kernels import _build
-    src = (_build.CSRC / "paged_decode.cu").read_text()
-    out = _build.BUILD / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = src
-        for const, value in VARIANTS[name].items():
-            text, n = re.subn(rf"constexpr int {const} = [^;]+;",
-                              f"constexpr int {const} = {value};", text)
-            if n != 1:
-                raise RuntimeError(f"{name}: constant {const} not found")
-        cu = out / f"paged_decode_{name}.cu"
-        cu.write_text(text)
-        so = out / f"lib_{name}.so"
-        log = open(out / f"{name}.log", "w")
-        cmd = [_build._nvcc(), _build.ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
-               str(_build.CSRC), "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=log,
-                                        stderr=subprocess.STDOUT), log, so)
-    libs = {}
-    for name, (proc, log, so) in procs.items():
-        rc = proc.wait()
-        log.close()
-        if rc:
-            raise RuntimeError(f"nvcc failed for {name}: "
-                               f"{(out / f'{name}.log').read_text()[-4000:]}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
-
-
-def _by_kernel(fn, reps: int = 20) -> dict:
-    """Device ms per call of each kernel a call launches (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        for k in ("decode_split_kernel", "decode_merge_kernel"):
-            if k in ev.key and us:
-                out[k] = out.get(k, 0.0) + us / reps / 1e3
-    return out
-
-
 def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -113,12 +57,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_decode as fd
     runs = (argv if argv is not None else sys.argv[1:]) or DEFAULT_RUNS
     runs = [r.split("@") for r in runs]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(json.dumps({"nvidia_smi": smi, "torch": torch.__version__}),
-          flush=True)
-    libs = _build_variants(sorted({v for v, _ in runs}))
+    print(json.dumps({"nvidia_smi": nv.nvidia_smi(),
+                      "torch": torch.__version__}), flush=True)
+    src = (_build.CSRC / "paged_decode.cu").read_text()
+    libs = nv.build({v: nv.edit(src, VARIANTS[v], v)
+                     for v in sorted({v for v, _ in runs})}, "paged_decode")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     bf = torch.bfloat16
@@ -168,8 +111,9 @@ def main(argv=None) -> int:
             if not (ratio <= 1.0 and lse_err <= 1e-4):
                 bad.append(f"{variant}@{target}/{name}")
             res[name] = {"ms": chip_smoke.time_ms(fn)[0],
-                         "by_kernel_ms": _by_kernel(fn), "o_ratio": ratio,
-                         "lse_err": lse_err}
+                         "by_kernel_ms": nv.ms_by_kernel(
+                             fn, r"decode_(split|merge)_kernel"),
+                         "o_ratio": ratio, "lse_err": lse_err}
         print(json.dumps(res), flush=True)
     print(json.dumps({"disagree": bad}))
     return 1 if bad else 0
