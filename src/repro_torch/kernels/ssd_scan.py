@@ -7,11 +7,21 @@ PyTorch version.
   after the last token, h_final (B, H, P, N) fp32.  Any S: the tail chunk
   is masked in the kernel (rows past S count as dt = 0, the identity of
   the recurrence), so nothing is padded.  Replaces the Pallas ``ssd_scan``.
+  bf16 runs on the tensor cores, each fp32 operand (the scores, the
+  weighted x, the carried state) entering its products as a bf16 head
+  and tail; the state each chunk starts from goes to the output kernel in
+  that form through a scratch ``h_split`` (B, H, nc, 2, P, N) bf16.  fp32
+  runs on the CUDA cores.
 * ``ssd_scan_plain`` — the same function in plain PyTorch: the tail padded
   with dt = 0 to a whole chunk, then ``ref.ssd_chunked_ref``.
 
 Given CUDA tensors the wrapper launches the kernel (and counts the launch
 in ``ssd_scan.launches``); given CPU tensors it runs the plain version.
+The bf16 kernels copy x, B and C 16 bytes at a time and read h0 as
+float4: x, Bm and Cm must start 16-byte aligned with batch and token
+strides of whole 16 bytes (8 elements), and h0 must start 16-byte
+aligned, or the call raises (the model's fused projection of
+``d_inner + 2 G N`` channels meets this).
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import _DTYPES
 
-# (P, N) pairs the kernel is instantiated for (csrc/ssd_scan.cu)
+# (P, N) pairs the kernels are instantiated for, both dtypes
+# (csrc/ssd_scan.cu); bf16 pads P and N to 64-column tiles
 SHAPES = ((64, 128), (32, 64), (16, 32), (16, 16))
 MAX_CHUNK = 256
 
@@ -47,7 +58,7 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, *, h0=None, chunk: int = 128
     return y[:, :S], h
 
 
-_SSD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 6 \
+_SSD_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 6 \
     + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
@@ -65,7 +76,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, *,
              h0: Optional[torch.Tensor] = None, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5.  Returns ``(y, h_final)``."""
+    """K5.  Returns ``(y, h_final)``.  bf16 x/B/C and h0 must meet the
+    alignment rule of the module docstring, or the launch raises."""
     if not x.is_cuda:
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
     B, S, H, P = x.shape
@@ -101,6 +113,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     h_final = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     states = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=dev)
+    h_split = (torch.empty((B, H, nc, 2, P, N), dtype=torch.bfloat16,
+                           device=dev) if x.dtype == torch.bfloat16 else None)
     a_cum = torch.empty((B, H, nc * chunk), dtype=torch.float32, device=dev)
     a_tot = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
     fn = _build.library("ssd_scan").ssd_scan_fwd
@@ -109,6 +123,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
             y.data_ptr(), h_final.data_ptr(), states.data_ptr(),
+            None if h_split is None else h_split.data_ptr(),
             a_cum.data_ptr(), a_tot.data_ptr(), *xs, *bs, *cs,
             B, S, H, G, P, N, chunk, nc, _DTYPES[x.dtype],
             _build.stream_ptr(dev))

@@ -150,6 +150,39 @@ def test_ssd_scan_bf16_groups4_on_card(h0):
     _check_ssd(x, dt, A, Bm, Cm, hz if h0 else None, 128)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["x", "Bm", "Cm", "h0", "row"])
+def test_ssd_scan_raises_on_unaligned_bf16(which):
+    """bf16 K5 copies x, B and C 16 bytes at a time and reads h0 as
+    float4: x, B or C one element off 16 bytes, h0 one float off, or a
+    fused projection whose row is one element wider than whole 16 bytes
+    raises at launch instead of faulting, and the card stays usable."""
+    dev = _card()
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    g = torch.Generator().manual_seed(12)
+    B, S, H, P, G, N = 1, 100, 2, 64, 1, 128
+    d_in, gn = H * P, G * N
+    # x, B and C with 8 elements between them, one shifted by an element
+    starts = {"x": 0, "Bm": d_in + 8, "Cm": d_in + gn + 16}
+    if which in starts:
+        starts[which] += 1
+    xbc = torch.randn(B, S, d_in + 2 * gn + 24 + int(which == "row"),
+                      generator=g).to(dev, torch.bfloat16)
+    x = xbc[..., starts["x"]:starts["x"] + d_in].reshape(B, S, H, P)
+    Bm = xbc[..., starts["Bm"]:starts["Bm"] + gn].reshape(B, S, G, N)
+    Cm = xbc[..., starts["Cm"]:starts["Cm"] + gn].reshape(B, S, G, N)
+    dt = torch.exp(torch.empty(B, S, H).uniform_(-6.9, -2.3,
+                                                 generator=g)).to(dev)
+    A = -torch.empty(H).uniform_(1.0, 16.0, generator=g).to(dev)
+    h = (0.3 * torch.randn(B * H * P * N + 1, generator=g)).to(dev)
+    h0 = (h[1:] if which == "h0" else h[:-1]).view(B, H, P, N)
+    before = ssd_scan.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_scan(x, dt, A, Bm, Cm, h0=h0, chunk=64)
+    assert ssd_scan.launches == before
+    _check_ssd(*_ssd_case(dev, g, B, S, H, P, G, N), 64)
+
+
 def _bf16_close(o, po):
     """chip_smoke.py's elementwise check for bf16 o."""
     o, po = o.float(), po.float()

@@ -6,12 +6,17 @@ causal conv to the reference's, and ``mamba_block`` to the reference's in
 prefill, decode and across CDSP chunks (conv window and SSD state handed
 over).  Inputs are made with numpy from a seed and handed to both
 packages.  Tolerance: fp32 ``atol = rtol = 1e-4`` (the two sides sum in
-different orders).  The arithmetic of the bf16 tensor-core SSD scan
-(``tools/ssd_scan_tc.cu``, a candidate for K5) is emulated in torch and
-held to the plain version and the Pallas scan under chip_smoke.py's K5
-check (y 1e-3 / 1e-2 after the bf16 rounding, h_final
-1e-4 / 1e-4).
+different orders).  The arithmetic of K5's bf16 kernels (tensor cores,
+``csrc/ssd_scan.cu``) is emulated in torch and held to the plain version
+and the Pallas scan under chip_smoke.py's K5 check (y 1e-3 / 1e-2 after
+the bf16 rounding, h_final 1e-4 / 1e-4), and, through chip_smoke.py's
+per-call gate, on every scan call of a reduced bf16 Mamba-2 serving two
+chunks.
 """
+
+import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -27,11 +32,17 @@ from repro.models.sharding import CPU_CTX as J_CTX
 from repro.models.ssm import mamba_block as _j_mamba_block
 from repro_torch.compat import causal_depthwise_conv
 from repro_torch.configs.registry import get_config
+from repro_torch.core.cdsp import prefill_chunk_paged
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
-from repro_torch.models.params import params_from_numpy
+from repro_torch.models.params import init_params, params_from_numpy
 from repro_torch.models.sharding import CPU_CTX
 from repro_torch.models.ssm import mamba_block
+from repro_torch.serving.cache_manager import PagedKVCache
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+import chip_smoke  # noqa: E402  (the repo root: the smoke's K5 check)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 # one compile per shape instead of one per primitive
@@ -206,7 +217,7 @@ def test_mamba_block_chunk_handoff(reduced_params_cache):
     _cache_close(tc, mc)
 
 
-# ------------- the tensor-core SSD scan's arithmetic (tools/ssd_scan_tc.cu)
+# ------------- the arithmetic of K5's bf16 kernels (csrc/ssd_scan.cu)
 def _split(a, parts=2):
     """fp32 ``a`` as the kernel enters it into bf16 products: a bf16 head
     and (``parts`` 2) the bf16 rounding of what the head left out."""
@@ -218,7 +229,7 @@ def _split(a, parts=2):
 
 
 def _k5_tc_emulation(x, dt, A, Bm, Cm, h0, chunk, *, score_parts=2):
-    """The bf16 tensor-core scan's order and roundings in torch (fp32 products of
+    """K5's bf16 order and roundings in torch (fp32 products of
     bf16 operands).  Rows past S are zeros with dt = 0.  Per chunk:
     a_cum = cumsum(dt A); the chunk state (w x)^T B with w x as a bf16
     head plus tail (w_j = exp(a_total - a_cum_j) dt_j); the pass over
@@ -299,7 +310,7 @@ def _k5_ratios(got, want):
 
 
 def test_k5_tensor_core_arithmetic_fits_the_smoke_check():
-    """The bf16 tensor-core scan's arithmetic (C B^T from the bf16 rows; the scores, w x
+    """K5's bf16 arithmetic (C B^T from the bf16 rows; the scores, w x
     and h_prev each as a bf16 head plus tail) against the plain version
     and the reference's Pallas scan in interpret mode, under
     chip_smoke.py's unchanged K5 check."""
@@ -319,9 +330,63 @@ def test_k5_tensor_core_arithmetic_fits_the_smoke_check():
 
 
 def test_k5_one_bf16_rounding_of_the_scores_misses_the_smoke_check():
-    """Why the bf16 tensor-core scan keeps the scores' tail: rounded once to bf16, the
-    decay-weighted scores leave y outside the check."""
+    """Why K5's bf16 kernels keep the scores' tail: rounded once to bf16,
+    the decay-weighted scores leave y outside the check."""
     x, dt, A, Bm, Cm, h0, chunk = case = _k5_case()
     got = _k5_tc_emulation(*case, score_parts=1)
     want = ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
     assert _k5_ratios(got, want)[0] > 1.0
+
+
+# ------------- chip_smoke.py's per-call K5 gate on a reduced Mamba-2
+def _gate_scan(kind):
+    """A scan in K5's place (ops.ssd_scan's arguments): the bf16 kernels'
+    arithmetic, or the plain scan with the CDSP hand-off lost."""
+    def scan(x, dt, A, Bm, Cm, *, h0=None, chunk=128):
+        assert x.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
+        if kind == "h0_dropped":
+            return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+        return _k5_tc_emulation(x, dt, A, Bm, Cm, h0, min(chunk, x.shape[1]))
+    return scan
+
+
+@pytest.mark.parametrize("kind,ok", [("tc_emulation", True),
+                                     ("h0_dropped", False)])
+def test_k5_per_call_gate_on_two_mamba2_chunks(kind, ok, monkeypatch):
+    """chip_smoke.py's gate on the served Mamba-2 path, on the CPU: a bf16
+    Mamba-2 cut to two layers and d_model 256 (8 SSD heads) at its
+    published head shape (P 64, N 128, one group, chunk 256), weights from
+    ``init_params``, prefills two 512-token chunks, the second from the
+    first's state and conv window.  Each layer's scan call goes through
+    the route it takes on the card with ``kind`` in the kernel's place and
+    is held to the plain scan on the same inputs: K5's bf16 arithmetic
+    passes on all four calls, a scan that drops the handed-in state does
+    not, and each planted fault reads > 1 on both kept calls."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=2,
+                              d_model=256, vocab_size=512)
+    assert (cfg.dtype, cfg.ssm.head_dim, cfg.ssm.d_state,
+            cfg.ssm.chunk_size) == ("bfloat16", 64, 128, 256)
+    params = init_params(cfg, seed=0, device="cpu")
+    none = PagedKVCache(cfg, 1, 64, device="cpu").pools      # no attention
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, 1024)))
+    pos = torch.arange(1024, dtype=torch.int32)[None]
+
+    def two_chunks():
+        aux = None
+        for off in (0, 512):
+            _, _, aux = prefill_chunk_paged(
+                params, cfg, CPU_CTX, toks[:, off:off + 512],
+                pos[:, off:off + 512], none, [], off, aux)
+        return aux
+
+    # ops.ssd as on the card: through ops.ssd_scan, here ``kind``
+    monkeypatch.setattr(ops, "use_kernel", lambda x, impl: impl is None)
+    monkeypatch.setattr(ops, "ssd_scan", _gate_scan(kind))
+    _, gate = chip_smoke.ssd_call_gate(two_chunks, cfg.n_layers)
+    assert gate["calls"] == 4 and gate["ok"] is ok, gate
+    assert (gate["worst_y"]["ratio"] <= 1.0) is ok
+    assert sorted(gate["planted"]) == ["layer0_chunk2", "layer1_chunk2"]
+    for faults in gate["planted"].values():
+        assert sorted(faults) == sorted(chip_smoke.SSD_FAULTS)
+        assert all(v > 1.0 for v in faults.values()), faults
