@@ -7,41 +7,45 @@ Phases, each printing JSON lines:
   1. device  — the card, its power limit, the torch/CUDA versions, and the
                build of every kernel from ``src/repro_torch/kernels/csrc``;
   2. kernels — each hand-written kernel against its plain PyTorch version
-               on the card, at the main paths' shapes and at edge cases,
-               with kernel, plain and library times (K1, K4 and K5 also
-               one call at a time with a cold L2, and K1 over one row of
-               131,072 keys);
-  3. serve   — Llama-3-8B (bf16, 32 layers) and then Mamba-2-1.3B (bf16,
-               48 layers), each at full width with seeded weights, serve
-               four requests through the port's ServingEngine; each path
-               must launch exactly its kernels (K1-K3 for Llama, K5 for
-               Mamba-2), the first chunk, a history chunk and a decode
-               tick are held to the plain path on the same weights (and
-               on Mamba-2 each K5 call of that replay to the plain scan on
-               its own inputs), and chunk/tick device times plus
-               event-clock TTFT/TBT are printed;
+               on the card, at the main paths' shapes (K1-K3 also at
+               Qwen1.5-MoE's heads) and at edge cases, with kernel, plain
+               and library times (K1, K4 and K5 also one call at a time
+               with a cold L2, and K1 over one row of 131,072 keys);
+  3. serve   — Llama-3-8B (bf16, 32 layers), Mamba-2-1.3B (bf16, 48
+               layers) and Qwen1.5-MoE-A2.7B (bf16, 24 layers, 60 routed
+               experts top-4), each at full width with seeded weights,
+               serve four requests through the port's ServingEngine; each
+               path must launch exactly its kernels (K1-K3 for Llama and
+               Qwen, K5 for Mamba-2), the first chunk, a history chunk and
+               a decode tick are held to the plain path on the same
+               weights (and on Mamba-2 each K5 call of that replay to the
+               plain scan on its own inputs), and chunk/tick device times
+               plus event-clock TTFT/TBT are printed; on Qwen also the
+               share of (token, choice) pairs that capacity dropped, and
+               the routing decisions that differ between the replays;
   4. dense   — Llama-3-8B at full width through CDSP chunked prefill over
                a dense history (K3), the hand-off to dense decode caches,
                and 16 dense decode ticks (K4); the first tick is held to
                the plain path;
-  5. tokens  — fp32 at two layers (full widths): Llama's and Mamba-2's
-               engine give identical greedy tokens on the kernel path and
-               the plain path, and Llama's dense path gives the paged
-               engine's tokens.
+  5. tokens  — fp32 at two layers (full widths): Llama's, Mamba-2's and
+               Qwen's engine give identical greedy tokens on the kernel
+               path and the plain path, and Llama's dense path gives the
+               paged engine's tokens.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
 subset; with no arguments phases 1-5 run.  ``--only profile`` adds a
 torch.profiler breakdown of one full-width prefill chunk and one decode
-tick of each served model (kernel time by group and by aten op, and the
-card's idle share); it fails where a window shows no time for a kernel it
-must run.
+tick of each served model (kernel time by group and by aten op, on Qwen
+by MoE stage, and the card's idle share); it fails where a window shows no
+time for a kernel it must run.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -70,6 +74,8 @@ SOURCES = {
 PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
                          "flash_attention"},
          "serve_mamba": {"ssd_scan"},
+         "serve_moe": {"paged_flash_decode", "paged_flash_prefill",
+                       "flash_attention"},
          "dense": {"flash_attention", "flash_decode"}}
 
 
@@ -91,7 +97,8 @@ def _device_ms(prof) -> float:
     """Summed device time (ms) of every kernel and copy a profile saw."""
     total = 0.0
     for ev in prof.key_averages():
-        if ev.device_type.name not in ("CUDA", "PrivateUse1"):
+        if (ev.device_type.name not in ("CUDA", "PrivateUse1")
+                or getattr(ev, "is_user_annotation", False)):
             continue
         us = getattr(ev, "self_device_time_total", None)
         total += (us if us is not None
@@ -194,6 +201,14 @@ def close_ratio(got, want, atol: float, rtol: float) -> float:
     return float(((g - w).abs() / (atol + rtol * w.abs())).max())
 
 
+# K1-K4's check against their plain versions, by dtype: o elementwise,
+# |o - o_plain| <= atol + rtol |o_plain|.  Both sides do their math in
+# fp32 and round o once to its dtype, so they may differ by one ulp of the
+# output (2^-7 relative in bf16, under rtol), while an error on the scale
+# of |o| itself (~0.02 at the main shapes) fails.  lse is fp32 on both
+# sides.
+KERNEL_TOL = {"bfloat16": dict(atol=1e-3, rtol=1e-2, lse=1e-4),
+              "float32": dict(atol=1e-5, rtol=1e-4, lse=1e-4)}
 # K5's check, (atol, rtol): y elementwise in its dtype (bf16 y is rounded
 # once on both sides, so they may differ by one ulp of y, under rtol);
 # h_final is fp32 on both sides, summed in another order
@@ -335,13 +350,7 @@ def phase_kernels(full_shapes: bool = True):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
-    # o elementwise: |o - o_plain| <= atol + rtol |o_plain|.  Both sides
-    # do their math in fp32 and round o once to its dtype, so they may
-    # differ by one ulp of the output (2^-7 relative in bf16, under rtol),
-    # while an error on the scale of |o| itself (~0.02 at the main shapes)
-    # fails.  lse is fp32 on both sides.
-    tol = {torch.bfloat16: dict(atol=1e-3, rtol=1e-2, lse=1e-4),
-           torch.float32: dict(atol=1e-5, rtol=1e-4, lse=1e-4)}
+    tol = {getattr(torch, k): v for k, v in KERNEL_TOL.items()}
     rows = {}
     failures = []
 
@@ -395,10 +404,13 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K3: flash attention over a chunk's own KV
     def k3(case, B, Sq, Sk, H, KVH, D, dtype, causal=True, window=None,
-           offset=0, perm=None, main=False):
+           offset=0, perm=None, main=False, timed=False):
         """``perm``: "within" shuffles key positions inside each 64-key
         tile, "across" over all keys (K/V rows move with them), so a tile's
-        positions are neither sorted nor its index's."""
+        positions are neither sorted nor its index's.  ``main``: the kernel
+        table's row; ``timed`` (implied by ``main``): times and a planted
+        fault."""
+        timed = timed or main
         q = randn(B, Sq, H, D, dtype=dtype)
         k = randn(B, Sk, KVH, D, dtype=dtype)
         v = randn(B, Sk, KVH, D, dtype=dtype)
@@ -420,7 +432,7 @@ def phase_kernels(full_shapes: bool = True):
         errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl),
                 **dead_rows(o, l, pl)}
         times = planted = None
-        if main:
+        if timed:
             bad, _ = flash_attention_plain(q, k, v.roll(1, 1), qp, kp,
                                            causal=causal, window=window)
             t = tol[dtype]
@@ -440,9 +452,11 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K2: chunk queries against history pages
     def k2(case, B, Sq, hist, H, KVH, D, page, dtype, window=None,
-           main=False, fault=False):
-        """``fault`` (implied by ``main``): the check must also reject a
-        planted fault (V one key off) at this case's shape."""
+           main=False, fault=False, timed=False):
+        """``fault`` (implied by ``main`` and ``timed``): the check must
+        also reject a planted fault (V one key off) at this case's shape;
+        ``timed`` (implied by ``main``): times."""
+        timed = timed or main
         q = randn(B, Sq, H, D, dtype=dtype)
         S_h = max(hist) if max(hist) > 0 else page
         kd = randn(B, S_h, KVH, D, dtype=dtype)
@@ -462,7 +476,7 @@ def phase_kernels(full_shapes: bool = True):
         errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl),
                 **dead_rows(o, l, pl)}
         times = planted = None
-        if main or fault:
+        if timed or fault:
             g2.manual_seed(1)
             vbad, _ = _pool_from_dense(vd.roll(1, 1), page, g2)
             bad, _ = paged_flash_prefill_plain(q, kpool, vbad, table, hl, qp,
@@ -471,7 +485,7 @@ def phase_kernels(full_shapes: bool = True):
             planted = {"v_one_key_off": close_ratio(bad, po, t["atol"],
                                                     t["rtol"])}
             del vbad
-        if main:
+        if timed:
             es = torch.finfo(dtype).bits // 8
             nbytes = 2 * B * Sq * H * D * es + 2 * sum(hist) * KVH * D * es \
                 + B * H * Sq * 4
@@ -679,6 +693,15 @@ def phase_kernels(full_shapes: bool = True):
         # one row at Llama 3.1 8B's published context (131,072 keys) plus
         # the fused append: 537 MB of K/V, ten times the L2
         k1("long_131072", [131072], 32, 8, 128, 64, bf, timed=True)
+        # Qwen1.5-MoE-A2.7B's heads (H 16, KVH 16, D 128: one head a GQA
+        # group, so a 128-row tile of K2/K3 holds 128 queries of one head)
+        # at the same chunks, history and decode batch
+        k3("qwen_main", 1, 3072, 3072, 16, 16, 128, bf, timed=True)
+        k2("qwen_main", 1, 3072, [3072], 16, 16, 128, 64, bf, timed=True)
+        k2("qwen_hist3000", 1, 3072, [3000], 16, 16, 128, 64, bf,
+           fault=True)
+        k1("qwen_main", [512, 2048, 4096, 6144], 16, 16, 128, 64, bf,
+           timed=True)
         # the dense path's decode batch: the smoke prompts in a dense cache
         k4("main", [512, 2048, 4096, 6144], 6144, 32, 8, 128, bf,
            main=True)
@@ -891,14 +914,178 @@ def ssd_call_gate(run, n_layers: int):
     return out, report
 
 
+def attn_call_gate(run, n_layers: int):
+    """Run ``run()``, a kernel-path replay of a bf16 attention model (two
+    chunks, then a decode tick), with each K1-K3 call also held to its
+    plain version on the same inputs (that layer's activations, the
+    pools as the call found them) under ``KERNEL_TOL``'s bf16 check; the
+    kernels' outputs go on unchanged.  The second chunk's K2 and K3 calls
+    and the tick's K1 call of the first and the last layer keep their
+    inputs, and the check must reject V one key off planted there.  Returns
+    (``run()``'s result, a report whose ``ok`` says whether every call
+    passed and every planted fault was rejected)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_plain, paged_flash_prefill_plain)
+    from repro_torch.kernels.flash_decode import paged_flash_decode_plain
+    plains = {"flash_attention": flash_attention_plain,
+              "paged_flash_prefill": paged_flash_prefill_plain,
+              "paged_flash_decode": paged_flash_decode_plain}
+    kernels = {n: getattr(ops, n) for n in plains}
+    # call index of the first and the last layer: K3 runs once a layer in
+    # each chunk (the second chunk's calls follow the first's), K2 in the
+    # second chunk, K1 in the tick
+    keep = {"flash_attention": (n_layers, 2 * n_layers - 1),
+            "paged_flash_prefill": (0, n_layers - 1),
+            "paged_flash_decode": (0, n_layers - 1)}
+    calls = {n: [] for n in plains}
+    kept = {}
+    tol = KERNEL_TOL["bfloat16"]
+
+    def ratios(got, want):
+        return {"o": close_ratio(got[0], want[0], tol["atol"], tol["rtol"]),
+                "lse": max_err(got[1], want[1]) / tol["lse"]}
+
+    def recorder(name):
+        def call(*args, **kw):
+            ins = args
+            if name == "paged_flash_decode":
+                # the fused append writes the pools in place: the plain
+                # version gets copies taken before the kernel's call
+                ins = (args[0], args[1].clone(), args[2].clone()) + args[3:]
+            got = kernels[name](*args, **kw)
+            want = plains[name](*ins, **kw)
+            if len(calls[name]) in keep[name]:
+                kept[(name, len(calls[name]))] = (ins, kw, want)
+            calls[name].append(ratios(got, want))
+            return got
+        return call
+
+    for name in plains:
+        setattr(ops, name, recorder(name))
+    try:
+        out = run()
+    finally:
+        for name, fn in kernels.items():
+            setattr(ops, name, fn)
+
+    report = {}
+    for name, rs in calls.items():
+        report[name] = {"calls": len(rs)}
+        for k in ("o", "lse") if rs else ():
+            i = max(range(len(rs)), key=lambda i: rs[i][k])
+            report[name][f"worst_{k}"] = {"ratio": rs[i][k], "call": i}
+    planted = {}
+    for (name, i), (ins, kw, want) in kept.items():
+        # V one key off: in a dense chunk along the keys, in a pool along
+        # each page's slots
+        bad = plains[name](*ins[:2], ins[2].roll(1, 1), *ins[3:], **kw)
+        planted[f"{name}_call{i}"] = close_ratio(bad[0], want[0],
+                                                 tol["atol"], tol["rtol"])
+    report["planted_v_one_key_off"] = planted
+    report["ok"] = (
+        [len(calls[n]) for n in plains] == [2 * n_layers, n_layers,
+                                            n_layers]
+        and all(r[k] <= 1.0 for rs in calls.values() for r in rs
+                for k in r)
+        and len(planted) == 6 and all(v > 1.0 for v in planted.values()))
+    return out, report
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Record the routing of every MoE layer call made inside the block:
+    yields a list that gains, per call, {"T": real tokens, "C": capacity,
+    "top_idx": (n, g, k), "keep": (n, g, k)} (tensors left on the
+    device), in call order: layer by layer within a forward, forward by
+    forward.  The layer's results are not touched."""
+    from repro_torch.models import moe
+    route, group = moe._route, moe._group_tokens
+    calls = []
+
+    def group_rec(x, g):
+        xt, T, pad = group(x, g)
+        calls.append({"T": T})
+        return xt, T, pad
+
+    def route_rec(xt, router_w, m, E, C):
+        r = route(xt, router_w, m, E, C)
+        calls[-1].update(C=C, top_idx=r["top_idx"], keep=r["keep"])
+        return r
+
+    moe._route, moe._group_tokens = route_rec, group_rec
+    try:
+        yield calls
+    finally:
+        moe._route, moe._group_tokens = route, group
+
+
+def _dropped(call) -> float:
+    """Share of a call's (real token, choice) pairs dropped by capacity
+    (padding rows, which also take capacity, left out)."""
+    k = call["keep"].shape[-1]
+    keep = call["keep"].reshape(-1, k)[:call["T"]]
+    return float((~keep).sum()) / keep.numel()
+
+
+def routing_summary(calls, n_layers: int, max_batch: int) -> dict:
+    """What the routing did in a served run: for each prefill chunk, its
+    tokens, capacity and dropped share (mean over layers, and the worst
+    layer); for the decode ticks (``max_batch`` rows, idle rows included,
+    as the engine routes them), the dropped share over all ticks and
+    layers and the worst tick."""
+    chunks, ticks = [], []
+    for f in range(0, len(calls), n_layers):
+        layers = calls[f:f + n_layers]
+        shares = [_dropped(c) for c in layers]
+        if layers[0]["T"] <= max_batch:
+            ticks.append(sum(shares) / len(shares))
+        else:
+            chunks.append({"tokens": layers[0]["T"], "C": layers[0]["C"],
+                           "dropped_share": sum(shares) / len(shares),
+                           "worst_layer": max(shares)})
+    return {"chunks": chunks, "ticks": {
+        "count": len(ticks), "rows": max_batch,
+        "dropped_share": sum(ticks) / len(ticks) if ticks else None,
+        "worst_tick": max(ticks) if ticks else None}}
+
+
+def routing_diff(got, want, n_layers: int, rows) -> dict:
+    """Routing decisions that differ between two runs of the same
+    forwards (``moe_routes`` records): per forward (named by ``rows``),
+    per layer, the real tokens whose top-k expert set differs and the
+    (token, choice) pairs whose capacity decision (keep) differs."""
+    out = {}
+    for f, row in enumerate(rows):
+        sets, keeps = [], []
+        for a, b in zip(got[f * n_layers:(f + 1) * n_layers],
+                        want[f * n_layers:(f + 1) * n_layers]):
+            k = a["top_idx"].shape[-1]
+            ta = a["top_idx"].reshape(-1, k)[:a["T"]].sort(-1).values
+            tb = b["top_idx"].reshape(-1, k)[:b["T"]].sort(-1).values
+            sets.append(int((ta != tb).any(-1).sum()))
+            keeps.append(int((a["keep"].reshape(-1, k)[:a["T"]]
+                              != b["keep"].reshape(-1, k)[:b["T"]]).sum()))
+        out[row] = {"tokens": got[f * n_layers]["T"],
+                    "topk_set_differs": sets, "keep_differs": keeps}
+    return out
+
+
 # bf16 logits against the plain path: the two paths round at different
 # places through 32 (Llama) or 48 (Mamba-2) layers, so logits drift by a
 # few hundredths; hold the worst element to 0.25 and the direction of the
 # whole row to a cosine limit.  Mamba-2's is 0.998: at 48 bf16 layers an
 # exact float64 scan reads down to 0.99873 and right scans to 0.99854
 # (PERF.md §6), so its scan is held per call instead (ssd_call_gate).
+# Qwen1.5-MoE's is 0.98: an ulp of attention flips near-tied router
+# choices (and, through capacity, drops other tokens), which moves a
+# row's logits far more than rounding does; right paths read down to
+# 0.98873 and planted faults at most 0.94567
+# (tools/moe_logits_floor.py, PERF.md §6), so its attention kernels are
+# held per call instead (attn_call_gate).
 LOGIT_TOL = {"llama3-8b": {"max_abs_err": 0.25, "cos": 0.999},
-             "mamba2-1.3b": {"max_abs_err": 0.25, "cos": 0.998}}
+             "mamba2-1.3b": {"max_abs_err": 0.25, "cos": 0.998},
+             "qwen2-moe-a2.7b": {"max_abs_err": 0.25, "cos": 0.98}}
 
 
 def _logits_vs_plain(phase, names, got, want, tol):
@@ -926,12 +1113,15 @@ def _serve_path(arch: str, path: str) -> dict:
     from repro_torch.serving.simulator import summarize
     cfg = get_config(arch)
     ctx = make_context("cuda")
+    # what an earlier path left on the card (its weights must be gone)
+    before = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=ctx.device)
     torch.cuda.synchronize()
     emit(phase="serve", model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
          d_model=cfg.d_model, params=count_params(params),
-         init_s=round(time.perf_counter() - t0, 2))
+         init_s=round(time.perf_counter() - t0, 2),
+         allocated_gib_before=round(before, 2))
     rng = np.random.default_rng(0)
     lens = [512, 2048, 4096, 6144]
     prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
@@ -942,10 +1132,11 @@ def _serve_path(arch: str, path: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    eng = _serve(cfg, params, prompts, ctx, out_len, max_seq=6208,
-                 prefill_pool_blocks=256, host_pool_blocks=128,
-                 profile_ops=True)
-    torch.cuda.synchronize()
+    with moe_routes() as routes:
+        eng = _serve(cfg, params, prompts, ctx, out_len, max_seq=6208,
+                     prefill_pool_blocks=256, host_pool_blocks=128,
+                     profile_ops=True)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts()
     emit(phase="serve", model=cfg.name, launches=counts,
@@ -968,6 +1159,12 @@ def _serve_path(arch: str, path: str) -> dict:
          scatter_device_us=_hist(eng, "op_device_us/scatter_chunk"),
          ttft_p50_s=s["ttft_p50"], ttft_p99_s=s["ttft_p99"],
          tbt_p50_s=s["tbt_p50"], clock="event")
+    if cfg.moe is not None:
+        # what capacity did to the served tokens (decode ticks route their
+        # rows as one group of 4: capacity 1 per expert)
+        emit(phase="serve", model=cfg.name,
+             routing=routing_summary(routes, cfg.n_layers, 4))
+    del routes
     first_tokens = {rid: toks[0] for rid, toks in eng.outputs.items()}
     del eng
     _free()
@@ -980,20 +1177,38 @@ def _serve_path(arch: str, path: str) -> dict:
     def replay():
         return _replay(cfg, params, ctx, prompts[rid], first_tokens[rid])
 
+    with moe_routes() as got_routes:
+        if path == "serve_mamba":
+            got, gate = ssd_call_gate(replay, cfg.n_layers)
+        elif path == "serve_moe":
+            got, gate = attn_call_gate(replay, cfg.n_layers)
+        else:
+            got = replay()
     if path == "serve_mamba":
-        got, gate = ssd_call_gate(replay, cfg.n_layers)
         emit(phase="serve", model=cfg.name, ssd_calls=gate,
              tol={k: SSD_TOL[k] for k in ("bfloat16", "h_final")})
         check(gate["ok"], f"{cfg.name}: a K5 call of the replay disagrees "
               "with the plain scan, or a planted fault passed: "
               f"{gate}")
-    else:
-        got = replay()
+    if path == "serve_moe":
+        emit(phase="serve", model=cfg.name, attention_calls=gate,
+             tol=KERNEL_TOL["bfloat16"])
+        check(gate["ok"], f"{cfg.name}: a K1-K3 call of the replay "
+              "disagrees with its plain version, or a planted fault "
+              f"passed: {gate}")
     check(int(torch.argmax(got[1])) == first_tokens[rid],
           f"{cfg.name}: replayed prefill disagrees with the engine's first "
           "token")
-    want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid],
-                   first_tokens[rid])
+    with moe_routes() as want_routes:
+        want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid],
+                       first_tokens[rid])
+    if cfg.moe is not None:
+        # bf16 attention differs between the paths by an ulp here and
+        # there, which can flip a near-tied router choice
+        emit(phase="serve", model=cfg.name, routing_vs_plain=routing_diff(
+            got_routes, want_routes, cfg.n_layers,
+            ("chunk1", "chunk2_history", "decode_tick")))
+    del got_routes, want_routes
     _logits_vs_plain("serve", ("chunk1", "chunk2_history", "decode_tick"),
                      got, want, LOGIT_TOL[arch])
     del params
@@ -1002,8 +1217,10 @@ def _serve_path(arch: str, path: str) -> dict:
 
 
 def phase_serve() -> dict:
+    # each path frees its weights before the next one starts
     return {"serve_llama": _serve_path("llama3-8b", "serve_llama"),
-            "serve_mamba": _serve_path("mamba2-1.3b", "serve_mamba")}
+            "serve_mamba": _serve_path("mamba2-1.3b", "serve_mamba"),
+            "serve_moe": _serve_path("qwen2-moe-a2.7b", "serve_moe")}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1149,6 +1366,8 @@ def phase_tokens():
     _free()
     _tokens_engine("mamba2-1.3b", "serve_mamba", 2, (300, 1000, 2500, 4000),
                    8)
+    _tokens_engine("qwen2-moe-a2.7b", "serve_moe", 3,
+                   (300, 1000, 2500, 4000), 8)
 
 
 # ---------------------------------------------------------- profile (opt-in)
@@ -1165,7 +1384,8 @@ def _kernel_groups(prof) -> dict:
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
-        if not us or ev.device_type.name not in ("CUDA", "PrivateUse1"):
+        if (not us or ev.device_type.name not in ("CUDA", "PrivateUse1")
+                or getattr(ev, "is_user_annotation", False)):
             continue
         name = ev.key
         attn = _ATTN_SYMBOL.search(name)
@@ -1198,6 +1418,48 @@ def _device_ms_by_op(prof, n: int = 10) -> dict:
     return dict(sorted(ops.items(), key=lambda kv: -kv[1])[:n])
 
 
+# the MoE layer's stages, each profiled as a range of its own: the
+# router's product, softmax, top-k and capacity order; the dispatch one-hot
+# and product; the routed experts' GEMMs and activation; the combine; the
+# shared experts' MLP
+MOE_STAGES = {"_route": "moe/route", "_dispatch_einsum": "moe/dispatch",
+              "_expert_ffn": "moe/experts", "_combine_einsum": "moe/combine",
+              "mlp": "moe/shared"}
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """Inside the block each MoE stage runs under a profiler range named
+    in ``MOE_STAGES``; the results are not touched."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe
+    saved = {k: getattr(moe, k) for k in MOE_STAGES}
+
+    def ranged(fn, label):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    for k, label in MOE_STAGES.items():
+        setattr(moe, k, ranged(saved[k], label))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(moe, k, fn)
+
+
+def _range_ms(prof) -> dict:
+    """Device time (ms) of the kernels launched inside each MoE stage's
+    range (``_moe_ranges``)."""
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CPU" and ev.key in MOE_STAGES.values():
+            out[ev.key] = out.get(ev.key, 0.0) + ev.device_time_total / 1e3
+    return out
+
+
 def _profile(model: str, windows) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1219,12 +1481,15 @@ def _profile(model: str, windows) -> None:
         groups, others = _kernel_groups(prof)
         groups = {k: v / reps for k, v in groups.items()}
         ops = _device_ms_by_op(prof)
+        stages = {k: v / reps for k, v in _range_ms(prof).items()}
         busy = sum(groups.values())
         emit(phase="profile", model=model, window=name, wall_ms=wall,
              wall_ms_no_profiler=bare, kernel_ms=groups, busy_ms=busy,
              idle_share=(1.0 - busy / wall) if busy else None,
+             idle_share_no_profiler=(1.0 - busy / bare) if busy else None,
              top_other_ms={k: v / reps for k, v in others.items()},
-             top_ops_ms={k: v / reps for k, v in ops.items()})
+             top_ops_ms={k: v / reps for k, v in ops.items()},
+             **({"moe_stage_ms": stages} if stages else {}))
         check(all(groups.get(g, 0.0) > 0.0 for g in need),
               f"profile {model}/{name}: no device time under {need}: "
               f"{groups}")
@@ -1297,6 +1562,34 @@ def phase_profile():
         ("decode_tick_b4",
          lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
                          "decode", caches=caches, cache_len=clen), 8, ())))
+    del params, none, aux, caches
+    _free()
+
+    # Qwen1.5-MoE-A2.7B: the same chunk and tick shapes as Llama's, with
+    # each MoE stage under a range of its own (moe_stage_ms)
+    cfg = get_config("qwen2-moe-a2.7b")
+    params = init_params(cfg, seed=0, device=dev)
+    kv = PagedKVCache(cfg, len(lens) * npg, page, device=dev)
+    for p in ("k", "v"):
+        kv.pools["0"][p].normal_()
+    toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
+    tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
+    caches = {"0": {"self": {"k": kv.pools["0"]["k"],
+                             "v": kv.pools["0"]["v"],
+                             "block_table": table[None].expand(
+                                 cfg.n_blocks, len(lens), npg)}}}
+    with _moe_ranges():
+        _profile(cfg.name, (
+            ("prefill_chunk_3072_hist_3072",
+             lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos,
+                                         kv.pools,
+                                         table[3, :3072 // page].tolist(),
+                                         3072), 2,
+             ("K2 paged_flash_prefill", "K3 flash_attention")),
+            ("decode_tick_b4",
+             lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
+                             "decode", caches=caches, cache_len=clen), 8,
+             ("K1 paged_flash_decode",))))
 
 
 def main(argv=None) -> int:

@@ -10,6 +10,7 @@ _MODULES = {
     "yi-9b": "yi_9b",
     "llama3-8b": "llama3_8b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 

@@ -6,9 +6,10 @@ Runs the real execution engine on the CUDA card (``--device cpu`` for the
 plain PyTorch path): CDSP chunked prefill straight into KV pages, KV
 hand-off, continuous-batch paged decode — and prints per-request plans and
 latency metrics from the event clock, for the reduced model
-(``--arch mamba2-1.3b`` serves the attention-free Mamba-2).  ``serve`` is
-the entry point for any config (``chip_smoke.py`` drives Llama-3-8B and
-Mamba-2-1.3B at their published widths through it).
+(``--arch mamba2-1.3b`` serves the attention-free Mamba-2,
+``--arch qwen2-moe-a2.7b`` the MoE).  ``serve`` is the entry point for
+any config (``chip_smoke.py`` drives Llama-3-8B, Mamba-2-1.3B and
+Qwen1.5-MoE-A2.7B at their published widths through it).
 """
 
 from __future__ import annotations

@@ -67,6 +67,8 @@ def mlp(x: torch.Tensor, p: dict, mlp_type: str) -> torch.Tensor:
         h = F.silu(x @ p["wg"]) * (x @ p["wi"])
     elif mlp_type == "relu2":
         h = torch.square(F.relu(x @ p["wi"]))
+    elif mlp_type == "gelu":                    # jax.nn.gelu's default
+        h = F.gelu(x @ p["wi"], approximate="tanh")
     else:
         raise NotImplementedError(f"mlp_type {mlp_type!r}")
     return h @ p["wo"]

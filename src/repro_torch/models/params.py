@@ -44,20 +44,36 @@ def _mamba_shapes(cfg: ModelConfig) -> dict:
             "norm": (d_in,), "wout": (d_in, d)}
 
 
+def _ffn_shapes(cfg: ModelConfig, d_ff: int) -> dict:
+    d = cfg.d_model
+    s = {"wi": (d, d_ff), "wo": (d_ff, d)}
+    if cfg.mlp_type == "swiglu":
+        s["wg"] = (d, d_ff)
+    return s
+
+
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    if spec.cross_attn or spec.ffn == "moe":
+    if spec.cross_attn:
         raise NotImplementedError(
-            f"{cfg.name}: cross attention and MoE layers are not ported yet")
+            f"{cfg.name}: cross attention layers are not ported yet")
     d = cfg.d_model
     s = {"norm1": (d,)}
     s.update(_attn_shapes(cfg) if spec.mixer == "attn"
              else _mamba_shapes(cfg))
     if spec.ffn != "none":
         s["norm2"] = (d,)
-        ffn = {"wi": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}
-        if cfg.mlp_type == "swiglu":
-            ffn["wg"] = (d, cfg.d_ff)
-        s["ffn"] = ffn
+        if spec.ffn == "moe":
+            # routed experts stacked over a leading E; the shared experts
+            # as one always-on MLP of n_shared * d_shared
+            m = cfg.moe
+            moe = {"router": (d, m.n_experts),
+                   "experts": {k: (m.n_experts,) + v for k, v in
+                               _ffn_shapes(cfg, m.d_expert).items()}}
+            if m.n_shared:
+                moe["shared"] = _ffn_shapes(cfg, m.n_shared * m.d_shared)
+            s["moe"] = moe
+        else:
+            s["ffn"] = _ffn_shapes(cfg, cfg.d_ff)
     return s
 
 

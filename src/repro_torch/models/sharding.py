@@ -3,8 +3,8 @@
 The reference ``ExecContext`` names mesh axes for GSPMD sharding; this slice
 of the port runs on one device, so the context carries only what the model
 and the serving engine read: the device, the kernel choice (``impl``), the
-runtime window override, and the paged-pool queries, which all answer
-"unsharded" (``mesh`` is always None here).
+runtime window override, the MoE dispatch strategy, and the paged-pool
+queries, which all answer "unsharded" (``mesh`` is always None here).
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ class ExecContext:
     active_pool_shards: Optional[int] = None
     kv_split_axis: None = None
     sp_axis: None = None
+    # gather/scatter MoE dispatch instead of one-hot einsums
+    moe_gather_dispatch: bool = False
 
     def pool_axis(self, role: str) -> None:
         if role not in ("decode", "prefill"):

@@ -11,8 +11,9 @@ pool in place.
 
 Modes: "train" (logits for every position), "prefill" (logits at the last
 position + the chunk's caches), "decode" (one token + updated caches).
-Attention and Mamba-2 layers are ported; MoE, cross attention and encoder
-stacks raise.
+Attention and Mamba-2 mixers with dense or MoE FFNs are ported (the MoE
+layers' load-balance losses are summed over the stack, as the reference's
+scan carry does); cross attention and encoder stacks raise.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from repro_torch.models.attention import attention_block
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import embed, mlp, rms_norm, unembed
+from repro_torch.models.moe import moe_layer
 from repro_torch.models.sharding import ExecContext
 from repro_torch.models.ssm import mamba_block
 
@@ -31,10 +33,12 @@ from repro_torch.models.ssm import mamba_block
 def _layer(x, spec: LayerSpec, p: dict, cfg: ModelConfig, ctx: ExecContext,
            positions, mode: str, cache: Optional[dict], cache_len,
            causal: bool, history: Optional[dict] = None):
-    """One pre-norm layer.  Returns (x, new_cache)."""
-    if spec.cross_attn or spec.ffn == "moe":
+    """One pre-norm layer.  Returns (x, new_cache, aux): aux is the MoE
+    layer's load-balance loss, None for a layer without one."""
+    if spec.cross_attn:
         raise NotImplementedError(
-            f"{cfg.name}: cross attention and MoE layers are not ported yet")
+            f"{cfg.name}: cross attention layers are not ported yet")
+    aux = None
     new_cache = {}
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
@@ -59,8 +63,12 @@ def _layer(x, spec: LayerSpec, p: dict, cfg: ModelConfig, ctx: ExecContext,
     x = x + o
     if spec.ffn != "none":
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp(h, p["ffn"], cfg.mlp_type)
-    return x, new_cache
+        if spec.ffn == "moe":
+            o, aux = moe_layer(h, p["moe"], cfg, ctx)
+        else:
+            o = mlp(h, p["ffn"], cfg.mlp_type)
+        x = x + o
+    return x, new_cache, aux
 
 
 def _slice(tree, b: int):
@@ -80,6 +88,7 @@ def _stack(trees: list):
 def _stack_forward(x, blocks_p, cfg: ModelConfig, ctx: ExecContext,
                    positions, mode: str, caches, cache_len, causal: bool,
                    history=None):
+    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     per_block = []
     for b in range(cfg.n_blocks):
         bp, bc, bh = _slice(blocks_p, b), _slice(caches, b), \
@@ -87,12 +96,14 @@ def _stack_forward(x, blocks_p, cfg: ModelConfig, ctx: ExecContext,
         new = {}
         for i, spec in enumerate(cfg.pattern):
             key = str(i)
-            x, new[key] = _layer(
+            x, new[key], aux = _layer(
                 x, spec, bp[key], cfg, ctx, positions, mode,
                 None if bc is None else bc.get(key), cache_len, causal,
                 history=None if bh is None else bh.get(key))
+            if aux is not None:
+                aux_tot = aux_tot + aux
         per_block.append(new)
-    return x, _restack(per_block, caches, mode)
+    return x, aux_tot, _restack(per_block, caches, mode)
 
 
 def _restack(per_block: list, caches, mode: str):
@@ -122,14 +133,15 @@ def forward(params: dict, cfg: ModelConfig, ctx: ExecContext,
             history: Optional[dict] = None,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
     """Run the model: tokens (B, S) int, positions (B, S) int32.  Returns
-    (logits, aux_loss (0: no MoE layer is ported), caches)."""
+    (logits, aux_loss (the MoE layers' summed load-balance loss; 0 without
+    MoE layers), caches)."""
     if cfg.encoder_decoder:
         raise NotImplementedError("encoder-decoder models are not ported yet")
     dtype = getattr(torch, cfg.dtype)
     x = embed(tokens, params["embed"], dtype)
-    x, new_caches = _stack_forward(x, params["blocks"], cfg, ctx, positions,
-                                   mode, caches, cache_len, causal=True,
-                                   history=history)
+    x, aux, new_caches = _stack_forward(x, params["blocks"], cfg, ctx,
+                                        positions, mode, caches, cache_len,
+                                        causal=True, history=history)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
         pos2d = positions[0] if positions.dim() == 3 else positions
@@ -137,5 +149,4 @@ def forward(params: dict, cfg: ModelConfig, ctx: ExecContext,
         x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     logits = unembed(x, table)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, new_caches

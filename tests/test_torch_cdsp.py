@@ -36,7 +36,8 @@ def _tokens(cfg, S, seed, batch=B):
     return tok, pos
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "yi-9b", "mamba2-1.3b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "yi-9b", "mamba2-1.3b",
+                                  "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("chunks", [[16, 48], [8, 24, 32], [1, 63]])
 def test_chunked_equals_monolithic(name, chunks, reduced_params_cache):
     cfg, _, _, params = _setup(reduced_params_cache, name)
@@ -47,7 +48,7 @@ def test_chunked_equals_monolithic(name, chunks, reduced_params_cache):
                                rtol=2e-3)
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "yi-9b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "yi-9b", "qwen2-moe-a2.7b"])
 def test_paged_chunks_match_reference(name, reduced_params_cache):
     """The engine's chunk path: each chunk attends to earlier chunks
     through the page pool and scatters its own KV into pages."""

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the hand-written CUDA kernels against their
-plain versions.  They skip without a CUDA device (the kernels have no CPU
-mode).  This file imports neither jax nor the reference package, so it
-also runs where only the port is installed:
+plain versions, and one full-width MoE layer in bf16 against fp32 on the
+CPU.  They skip without a CUDA device (the kernels have no CPU mode).
+This file imports neither jax nor the reference package, so it also runs
+where only the port is installed:
 
     python3 -m pytest -q --noconftest tests/test_torch_cuda.py
 """
@@ -443,3 +444,148 @@ def test_decode_kernels_raise_on_unaligned_bf16(which):
                                     dtype=torch.bfloat16), ln)
     torch.cuda.synchronize()
     assert torch.isfinite(o.float()).all()
+
+
+# Qwen1.5-MoE-A2.7B's attention: 16 heads over 16 KV heads of 128 (GQA
+# group 1), so K2/K3's 128-row tile holds 128 queries of one head
+QWEN_HEADS = dict(H=16, KVH=16, D=128)
+
+
+@pytest.mark.cuda
+def test_paged_decode_at_qwen_heads_on_card():
+    """K1 in bf16 at Qwen's heads over the smoke's decode batch, with
+    lengths that leave NaN in the last pages' unused slots."""
+    dev = _card()
+    g = torch.Generator().manual_seed(9)
+    h = QWEN_HEADS
+    _check_paged(*_paged_case(dev, g, [6100, 4001, 2047, 509], h["H"],
+                              h["KVH"], h["D"], 64, torch.bfloat16),
+                 torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [3072, 17])
+def test_prefill_kernels_at_qwen_heads_on_card(Sq):
+    """K3 over a chunk's own keys and K2 over 3000 history tokens (the
+    last page's unused slots NaN) at Qwen's heads in bf16, for the
+    smoke's 3072-token chunk and for fewer queries than one tile."""
+    dev = _card()
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain, paged_flash_prefill,
+        paged_flash_prefill_plain)
+    g = torch.Generator().manual_seed(10)
+    H, KVH, D = QWEN_HEADS["H"], QWEN_HEADS["KVH"], QWEN_HEADS["D"]
+    hist, page = 3000, 64
+    q = torch.randn(1, Sq, H, D, generator=g).to(dev, torch.bfloat16)
+    k = torch.randn(1, Sq, KVH, D, generator=g).to(dev, torch.bfloat16)
+    v = torch.randn(1, Sq, KVH, D, generator=g).to(dev, torch.bfloat16)
+    pos = torch.arange(Sq, dtype=torch.int32, device=dev)
+    o, lse = flash_attention(q, k, v, pos, pos)
+    po, plse = flash_attention_plain(q, k, v, pos, pos)
+    _bf16_close(o, po)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+    kd = torch.randn(1, hist, KVH, D, generator=g).to(dev, torch.bfloat16)
+    vd = torch.randn(1, hist, KVH, D, generator=g).to(dev, torch.bfloat16)
+    kp, table = chip_smoke._pool_from_dense(kd, page, g.manual_seed(11))
+    vp, _ = chip_smoke._pool_from_dense(vd, page, g.manual_seed(11))
+    last = table[0, -1].long()
+    kp[last, hist % page:] = float("nan")
+    vp[last, hist % page:] = float("nan")
+    hl = torch.tensor([hist], dtype=torch.int32, device=dev)
+    o, lse = paged_flash_prefill(q, kp, vp, table, hl, hist + pos[None])
+    po, plse = paged_flash_prefill_plain(q, kp, vp, table, hl,
+                                         hist + pos[None])
+    assert torch.isfinite(o.float()).all()
+    _bf16_close(o, po)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", [False, True])
+def test_moe_layer_full_width_bf16_on_card(gather):
+    """One Qwen1.5-MoE-A2.7B MoE layer at published widths (60 experts of
+    1408, top-4, capacity 1.25, shared 5632) in bf16 on the card against
+    the same layer in fp32 on the CPU, on the same (bf16-valued) weights
+    and 1400 tokens (three groups, the last padded).
+
+    The card's router logits are the fp32 ones rounded to bf16, each off
+    by at most 2^-9 of its size, so a token's top-4 set may differ only
+    where its 4th and 5th fp32 logits lie within 2^-8 of the largest
+    |logit| of the row: every differing token must be such a near tie.
+    In each group, the (token, choice) pairs before the first token whose
+    choices differ must get the same slot and capacity decision.  Tokens
+    routed alike (same choices, same keeps) agree to 2^-5 of their row's
+    largest |y| (bf16 GEMM outputs rounded at three stages).  The layer in
+    bf16 on the CPU, on these inputs: 29 of 1536 token rows take another
+    top-4 set, 239 are near ties, 63 of 1400 tokens are routed otherwise,
+    and the alike tokens' worst |dy| is 0.0089 of their row's scale."""
+    dev = _card()
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import CPU_CTX, make_context
+    cfg = get_config("qwen2-moe-a2.7b")
+    m, d, E, k = cfg.moe, cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
+    g = torch.Generator().manual_seed(12)
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g)
+                / shape[-2] ** 0.5).to(torch.bfloat16)
+
+    fs = m.n_shared * m.d_shared
+    p = {"router": w(d, E),
+         "experts": {"wi": w(E, d, m.d_expert), "wg": w(E, d, m.d_expert),
+                     "wo": w(E, m.d_expert, d)},
+         "shared": {"wi": w(d, fs), "wg": w(d, fs), "wo": w(fs, d)}}
+    x = torch.randn(1, 1400, d, generator=g).to(torch.bfloat16)
+    routes = []
+    route = moe._route
+
+    def record(*a):
+        routes.append(route(*a))
+        return routes[-1]
+
+    def tree(t, fn):
+        return {n: tree(v, fn) if isinstance(v, dict) else fn(v)
+                for n, v in t.items()}
+
+    moe._route = record
+    try:
+        yb, _ = moe.moe_layer(
+            x.to(dev), tree(p, lambda t: t.to(dev)), cfg,
+            make_context("cuda").with_(moe_gather_dispatch=gather))
+        yf, _ = moe.moe_layer(
+            x.float(), tree(p, torch.Tensor.float),
+            dataclasses.replace(cfg, dtype="float32"),
+            CPU_CTX.with_(moe_gather_dispatch=gather))
+    finally:
+        moe._route = route
+    rb = {n: t.cpu() for n, t in routes[0].items()}
+    rf = routes[1]
+    n_g, grp = rf["top_idx"].shape[:2]
+    differs = (rb["top_idx"] != rf["top_idx"]).any(-1)          # (n, g)
+    sets = (rb["top_idx"].sort(-1).values
+            != rf["top_idx"].sort(-1).values).any(-1)
+    logits = (x.float().reshape(-1, d) @ p["router"].float())
+    logits = torch.cat([logits, torch.zeros(n_g * grp - logits.shape[0],
+                                            E)]).reshape(n_g, grp, E)
+    top = logits.sort(-1, descending=True).values
+    near = (top[..., k - 1] - top[..., k]
+            <= logits.abs().amax(-1) * 2.0 ** -8)
+    assert not bool((sets & ~near).any()), "a top-4 set flipped without a tie"
+    for n in range(n_g):
+        first = int(differs[n].nonzero()[0]) if differs[n].any() else grp
+        for key in ("top_idx", "within", "keep"):
+            assert torch.equal(rb[key][n, :first], rf[key][n, :first])
+    alike = ~differs & (rb["keep"] == rf["keep"]).all(-1)
+    alike = alike.reshape(-1)[:x.shape[1]]
+    yb, yf = yb.float().cpu().reshape(-1, d), yf.reshape(-1, d)
+    scale = yf.abs().amax(-1, keepdim=True)
+    ratio = ((yb - yf).abs() / scale)[alike]
+    assert float(ratio.max()) <= 2.0 ** -5
+    assert int(alike.sum()) > 0.9 * x.shape[1]
+    print(f"moe layer on card: {int(sets.sum())} of {n_g * grp} token rows "
+          f"route to another top-4 set ({int(near.sum())} near ties); "
+          f"{int((~alike).sum())} of {x.shape[1]} tokens routed otherwise; "
+          f"alike tokens' worst |dy| / row scale {float(ratio.max()):.4f}")

@@ -124,6 +124,21 @@ SCENARIOS = {
         policy="two_chunk",
         engine=dict(max_batch=4, max_seq=256, block_size=32),
         trace=dict(seed=7, n=2, lo=40, hi=90, gap=0.03, out_len=3)),
+    # reduced Qwen1.5-MoE (q/k/v bias, MHA, an MoE FFN with a shared
+    # expert): tetris plans, and two chunks per prompt over paged history;
+    # each decode tick routes its four rows (idle ones included) as one
+    # group, as the reference does
+    "moe_tetris": dict(
+        arch="qwen2-moe-a2.7b",
+        spec=dict(n_prefill=16, n_decode=2, sp_candidates=(1, 2, 4, 8)),
+        policy="tetris", engine=dict(max_batch=4, max_seq=256),
+        trace=dict(seed=1, n=3, lo=20, hi=90, gap=0.05, out_len=3)),
+    "moe_multichunk": dict(
+        arch="qwen2-moe-a2.7b",
+        spec=dict(n_prefill=8, n_decode=2, sp_candidates=(1, 2, 4)),
+        policy="two_chunk",
+        engine=dict(max_batch=4, max_seq=256, block_size=32),
+        trace=dict(seed=7, n=2, lo=40, hi=90, gap=0.03, out_len=3)),
     # tests/test_paged_engine.py:200 — decode growth exhausts a tight pool
     "block_exhaustion": dict(
         spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
@@ -155,7 +170,7 @@ def test_engine_records_match_reference(scenario, reduced_params_cache):
         assert port.preempt_log, "the tight pool must preempt"
     if scenario == "preempt_requeue":
         assert port.reqs[0].preemptions == 1
-    if scenario == "mamba_multichunk":
+    if scenario in ("mamba_multichunk", "moe_multichunk"):
         assert all(len(r.chunk_plan) == 2 for r in port.reqs.values())
 
 
@@ -173,5 +188,14 @@ def test_serve_cli_runs_mamba_on_cpu(capsys):
     from repro_torch.launch import serve
     serve.main(["--device", "cpu", "--arch", "mamba2-1.3b", "--requests",
                 "3", "--output-len", "3"])
+    out = capsys.readouterr().out
+    assert out.count("plan=[(") == 3 and "TTFT p50" in out
+
+
+def test_serve_cli_runs_moe_on_cpu(capsys):
+    """The launcher serves the reduced Qwen1.5-MoE on the plain path."""
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--arch", "qwen2-moe-a2.7b",
+                "--requests", "3", "--output-len", "3"])
     out = capsys.readouterr().out
     assert out.count("plan=[(") == 3 and "TTFT p50" in out

@@ -1,5 +1,5 @@
-"""The port's models (dense decoder and Mamba-2) against the reference,
-on the CPU.
+"""The port's models (dense decoder, Mamba-2 and MoE) against the
+reference, on the CPU.
 
 Both packages get the same weights (the reference's seeded init, bridged
 through ``params_from_numpy``) and the same numpy inputs.  Logits agree to
@@ -23,8 +23,8 @@ from repro_torch.models.params import (count_params, init_params,
 from repro_torch.models.sharding import CPU_CTX, make_context
 from repro_torch.models.transformer import forward
 
-ARCHS = ["llama3-8b", "yi-9b", "mamba2-1.3b"]
-ATTN_ARCHS = ["llama3-8b", "yi-9b"]
+ARCHS = ["llama3-8b", "yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b"]
+ATTN_ARCHS = ["llama3-8b", "yi-9b", "qwen2-moe-a2.7b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -80,11 +80,14 @@ def test_forward_matches_reference(name, mode, reduced_params_cache):
     B, S = 2, 24
     tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
-    want, _, jc = j_forward(jp, cfg, J_CTX, jnp.asarray(tok),
-                            jnp.asarray(pos), mode)
-    got, _, tc = forward(tp, _port_cfg(cfg), CPU_CTX, torch.from_numpy(tok),
-                         torch.from_numpy(pos), mode)
+    want, want_aux, jc = j_forward(jp, cfg, J_CTX, jnp.asarray(tok),
+                                   jnp.asarray(pos), mode)
+    got, aux, tc = forward(tp, _port_cfg(cfg), CPU_CTX,
+                           torch.from_numpy(tok), torch.from_numpy(pos), mode)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the MoE layers' summed load-balance loss (0 without MoE layers)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+    assert (float(aux) > 0) == (cfg.moe is not None)
     if mode == "prefill":
         # attention: the chunk's k/v; Mamba-2: its conv window and state
         for part, want_c in jc["0"]["self"].items():
@@ -170,3 +173,24 @@ def test_greedy_tokens_match_generate_dense(name, reduced_params_cache):
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 17)
     assert (_generate(tp, _port_cfg(cfg), prompt, 6)
             == generate_dense(jp, cfg, prompt, 6))
+
+
+def test_moe_capacity_drops_tokens(reduced_params_cache):
+    """The reference's ``tests/test_models.py::test_moe_capacity_drops_tokens``
+    on reduced Qwen1.5-MoE: with a tiny capacity factor the routed output
+    differs from the dropless one (tokens over capacity fall back to the
+    residual path), and equals the reference's under the same capacity."""
+    cfg, jp, tp = _bridged(reduced_params_cache, "qwen2-moe-a2.7b")
+    jtight, ttight = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=0.25)) for c in (cfg, _port_cfg(cfg)))
+    rng = np.random.default_rng(1)
+    B, S = 2, 24
+    tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    t_tok, t_pos = torch.from_numpy(tok), torch.from_numpy(pos)
+    a, _, _ = forward(tp, _port_cfg(cfg), CPU_CTX, t_tok, t_pos, "train")
+    b, _, _ = forward(tp, ttight, CPU_CTX, t_tok, t_pos, "train")
+    assert float((a - b).abs().max()) > 1e-4
+    want, _, _ = j_forward(jp, jtight, J_CTX, jnp.asarray(tok),
+                           jnp.asarray(pos), "train")
+    np.testing.assert_allclose(b.numpy(), np.asarray(want), **TOL)
