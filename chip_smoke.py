@@ -7,30 +7,35 @@ Phases, each printing JSON lines:
   1. device  — the card, its power limit, the torch/CUDA versions, and the
                build of every kernel from ``src/repro_torch/kernels/csrc``;
   2. kernels — each hand-written kernel against its plain PyTorch version
-               on the card, at the main paths' shapes (K1-K3 also at
-               Qwen1.5-MoE's heads) and at edge cases, with kernel, plain
-               and library times (K1, K4 and K5 also one call at a time
-               with a cold L2, and K1 over one row of 131,072 keys);
+               on the card, at the main paths' shapes (K1-K4 also at
+               Qwen1.5-MoE's, ChatGLM3-6B's and Nemotron-4-15B's heads:
+               GQA groups 1, 16 and 6; K1-K3 under Mixtral-8x22B's
+               4096-token window) and at edge cases, with kernel, plain
+               and library times (each timed case also one call at a
+               time with a cold L2), and K1 over one row of 131,072 keys;
   3. serve   — Llama-3-8B (bf16, 32 layers), Mamba-2-1.3B (bf16, 48
-               layers) and Qwen1.5-MoE-A2.7B (bf16, 24 layers, 60 routed
-               experts top-4), each at full width with seeded weights,
-               serve four requests through the port's ServingEngine; each
-               path must launch exactly its kernels (K1-K3 for Llama and
-               Qwen, K5 for Mamba-2), the first chunk, a history chunk and
-               a decode tick are held to the plain path on the same
-               weights (and on Mamba-2 each K5 call of that replay to the
-               plain scan on its own inputs), and chunk/tick device times
-               plus event-clock TTFT/TBT are printed; on Qwen also the
-               share of (token, choice) pairs that capacity dropped, and
-               the routing decisions that differ between the replays;
+               layers), Qwen1.5-MoE-A2.7B (bf16, 24 layers, 60 routed
+               experts top-4), ChatGLM3-6B (bf16, 28 layers, 32 heads over
+               2 KV heads) and Nemotron-4-15B (bf16, 32 layers, 48 heads
+               over 8), each at full width with seeded weights, serve four
+               requests through the port's ServingEngine; each path must
+               launch exactly its kernels (K1-K3 for the attention models,
+               K5 for Mamba-2), the first chunk, a history chunk and a
+               decode tick are held to the plain path on the same weights
+               (and, except on Llama, each K1-K3 or K5 call of that replay
+               to its plain version on its own inputs), and chunk/tick
+               device times plus event-clock TTFT/TBT are printed; on Qwen
+               also the share of (token, choice) pairs that capacity
+               dropped, and the routing decisions that differ between the
+               replays;
   4. dense   — Llama-3-8B at full width through CDSP chunked prefill over
                a dense history (K3), the hand-off to dense decode caches,
                and 16 dense decode ticks (K4); the first tick is held to
                the plain path;
-  5. tokens  — fp32 at two layers (full widths): Llama's, Mamba-2's and
-               Qwen's engine give identical greedy tokens on the kernel
-               path and the plain path, and Llama's dense path gives the
-               paged engine's tokens.
+  5. tokens  — fp32 at two layers (full widths): each served model's
+               engine gives identical greedy tokens on the kernel path and
+               the plain path, and Llama's dense path gives the paged
+               engine's tokens.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
@@ -76,7 +81,14 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
          "serve_mamba": {"ssd_scan"},
          "serve_moe": {"paged_flash_decode", "paged_flash_prefill",
                        "flash_attention"},
+         "serve_chatglm": {"paged_flash_decode", "paged_flash_prefill",
+                           "flash_attention"},
+         "serve_nemotron": {"paged_flash_decode", "paged_flash_prefill",
+                            "flash_attention"},
          "dense": {"flash_attention", "flash_decode"}}
+# the served attention models whose replay holds each K1-K3 call to its
+# plain version (attn_call_gate)
+ATTN_GATED = ("serve_moe", "serve_chatglm", "serve_nemotron")
 
 
 class CheckFailed(RuntimeError):
@@ -106,12 +118,15 @@ def _device_ms(prof) -> float:
     return total / 1e3
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2):
+def time_ms(fn, reps: int = 10, warmup: int = 2, windows: int = 3):
     """(device ms, stream ms) per call: the card's kernel time summed by
     torch.profiler, and CUDA events around ``reps`` back-to-back calls —
     the latter includes the host's launch gaps, which exceed a small
-    kernel's own time.  Where the profiler sees no device activity, the
-    event time stands in for both."""
+    kernel's own time.  The profiler runs ``windows`` windows of ``reps``
+    calls and the median window counts: a window now and then loses some
+    or all of its device events and reads far below the others.  Where
+    the median window sees no device activity, the event time stands in
+    for both."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -125,12 +140,15 @@ def time_ms(fn, reps: int = 10, warmup: int = 2):
     end.record()
     end.synchronize()
     stream = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return (_device_ms(prof) / reps) or stream, stream
+    dev = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev.append(_device_ms(prof) / reps)
+    return sorted(dev)[windows // 2] or stream, stream
 
 
 def event_ms(fn, cold: bool, n: int = 20) -> float:
@@ -448,6 +466,8 @@ def phase_kernels(full_shapes: bool = True):
                 lambda: flash_attention(q, k, v, qp, kp),
                 lambda: flash_attention_plain(q, k, v, qp, kp),
                 _sdpa(q, k, v, None), bms, by)
+            times.update(_cold_times(
+                lambda: flash_attention(q, k, v, qp, kp)))
         record("flash_attention", case, dtype, errs, main, times, planted)
 
     # ---- K2: chunk queries against history pages
@@ -500,6 +520,8 @@ def phase_kernels(full_shapes: bool = True):
                 lambda: paged_flash_prefill_plain(q, kpool, vpool, table, hl,
                                                   qp),
                 _sdpa(q, kg, vg, mask), bms, by)
+            times.update(_cold_times(
+                lambda: paged_flash_prefill(q, kpool, vpool, table, hl, qp)))
         record("paged_flash_prefill", case, dtype, errs, main, times,
                planted)
 
@@ -591,7 +613,10 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K4: one query per row over a dense cache
     def k4(case, lengths, S, H, KVH, D, dtype, window=None, kv_offset=0,
-           main=False):
+           main=False, timed=False):
+        """``main``: the kernel table's row; ``timed`` (implied by
+        ``main``): times (warm and cold L2) and a planted fault."""
+        timed = timed or main
         B = len(lengths)
         q = randn(B, H, D, dtype=dtype)
         k = randn(B, S, KVH, D, dtype=dtype)
@@ -603,7 +628,7 @@ def phase_kernels(full_shapes: bool = True):
         torch.cuda.synchronize()
         errs = {**o_errs(o, po, dtype), "lse": max_err(l, pl)}
         times = planted = None
-        if main:
+        if timed:
             t = tol[dtype]
             bad, _ = flash_decode_plain(q, k, v.roll(1, 1), ln, **kw)
             planted = {"v_one_key_off": close_ratio(bad, po, t["atol"],
@@ -705,6 +730,31 @@ def phase_kernels(full_shapes: bool = True):
         # the dense path's decode batch: the smoke prompts in a dense cache
         k4("main", [512, 2048, 4096, 6144], 6144, 32, 8, 128, bf,
            main=True)
+        # ChatGLM3-6B's heads (H 32 over KVH 2, D 128: a GQA group of 16,
+        # so a 128-row tile of K2/K3 holds 8 queries) and Nemotron-4-15B's
+        # (H 48 over KVH 8: a group of 6, 21 queries and 126 live rows a
+        # tile) at the same chunks, history and decode batch; K4 at both
+        # groups over the dense path's batch
+        for who, H, KVH in (("chatglm", 32, 2), ("nemotron", 48, 8)):
+            k3(f"{who}_main", 1, 3072, 3072, H, KVH, 128, bf, timed=True)
+            k2(f"{who}_main", 1, 3072, [3072], H, KVH, 128, 64, bf,
+               timed=True)
+            k2(f"{who}_hist3000", 1, 3072, [3000], H, KVH, 128, 64, bf,
+               fault=True)
+            k1(f"{who}_main", [512, 2048, 4096, 6144], H, KVH, 128, 64, bf,
+               timed=True)
+            k4(f"{who}_main", [512, 2048, 4096, 6144], 6144, H, KVH, 128,
+               bf, timed=True)
+        # Mixtral-8x22B's heads (H 48, KVH 8) under its 4096-token window,
+        # over rows longer than the window: K3 a second 3072-token chunk
+        # over the first's keys, K2 1024 queries after 5000 history tokens,
+        # K1 a batch with rows on both sides of 4096
+        k3("mixtral_window4096", 1, 3072, 6144, 48, 8, 128, bf,
+           window=4096, offset=3072)
+        k2("mixtral_window4096", 1, 1024, [5000], 48, 8, 128, 64, bf,
+           window=4096, fault=True)
+        k1("mixtral_window4096", [4500, 6144, 100, 8000], 48, 8, 128, 64,
+           bf, window=4096)
         # Mamba-2-1.3B: a 3072-token CDSP chunk with the state handed in
         k5("main", 1, 3072, 64, 64, 1, 128, 256, bf, main=True)
         k5("ragged_S_via_ops", 1, 1000, 64, 64, 1, 128, 256, bf,
@@ -742,6 +792,26 @@ def phase_kernels(full_shapes: bool = True):
         k4("window_offset_d32_g1", [300, 129], 300, 4, 4, 32, dt,
            window=50, kv_offset=20)
         k4("g8_short", [1, 5], 8, 16, 2, 128, dt)
+        # GQA groups 6 and 16: head_dim 32, padded rows, windows, POS_PAD
+        # columns, ragged S and chunks, masked rows, pages 8-64
+        k1("page16_g6_d32_padded_window", [300, 0, 45], 12, 2, 32, 16, dt,
+           window=100, pad_rows=(1,))
+        k1("page8_g16_d32_pospad", [200, 17], 16, 1, 32, 8, dt,
+           pos_pad_cols=2)
+        k1("page64_g16_d128", [700, 3], 32, 2, 128, 64, dt)
+        k1("page32_g6_d128_window", [500, 64], 48, 8, 128, 32, dt,
+           window=70)
+        k4("g6_d32_window_offset_zero_row", [300, 129, 0], 300, 12, 2, 32,
+           dt, window=50, kv_offset=20)
+        k4("g16_ragged_S", [77, 0, 30], 77, 16, 1, 128, dt)
+        k3("g6_d32_ragged_window", 2, 100, 150, 12, 2, 32, dt, offset=50,
+           window=40)
+        k3("g16_d128_sq17_masked_rows", 1, 17, 30, 32, 2, 128, dt,
+           offset=-5)
+        k3("g6_d128_perm_across", 1, 200, 200, 48, 8, 128, dt,
+           perm="across")
+        k2("g6_d32_page16_ragged", 2, 37, [45, 3], 12, 2, 32, 16, dt)
+        k2("g16_d128_page8_masked_rows", 2, 33, [96, 0], 32, 2, 128, 8, dt)
         k5("S_below_chunk_no_h0", 1, 100, 8, 64, 1, 128, 256, dt,
            h0=False)
         k5("groups4_ragged", 2, 300, 8, 64, 4, 128, 128, dt, via_ops=True)
@@ -1085,7 +1155,9 @@ def routing_diff(got, want, n_layers: int, rows) -> dict:
 # held per call instead (attn_call_gate).
 LOGIT_TOL = {"llama3-8b": {"max_abs_err": 0.25, "cos": 0.999},
              "mamba2-1.3b": {"max_abs_err": 0.25, "cos": 0.998},
-             "qwen2-moe-a2.7b": {"max_abs_err": 0.25, "cos": 0.98}}
+             "qwen2-moe-a2.7b": {"max_abs_err": 0.25, "cos": 0.98},
+             "chatglm3-6b": {"max_abs_err": 0.25, "cos": 0.999},
+             "nemotron-4-15b": {"max_abs_err": 0.25, "cos": 0.999}}
 
 
 def _logits_vs_plain(phase, names, got, want, tol):
@@ -1180,7 +1252,7 @@ def _serve_path(arch: str, path: str) -> dict:
     with moe_routes() as got_routes:
         if path == "serve_mamba":
             got, gate = ssd_call_gate(replay, cfg.n_layers)
-        elif path == "serve_moe":
+        elif path in ATTN_GATED:
             got, gate = attn_call_gate(replay, cfg.n_layers)
         else:
             got = replay()
@@ -1190,7 +1262,7 @@ def _serve_path(arch: str, path: str) -> dict:
         check(gate["ok"], f"{cfg.name}: a K5 call of the replay disagrees "
               "with the plain scan, or a planted fault passed: "
               f"{gate}")
-    if path == "serve_moe":
+    if path in ATTN_GATED:
         emit(phase="serve", model=cfg.name, attention_calls=gate,
              tol=KERNEL_TOL["bfloat16"])
         check(gate["ok"], f"{cfg.name}: a K1-K3 call of the replay "
@@ -1220,7 +1292,10 @@ def phase_serve() -> dict:
     # each path frees its weights before the next one starts
     return {"serve_llama": _serve_path("llama3-8b", "serve_llama"),
             "serve_mamba": _serve_path("mamba2-1.3b", "serve_mamba"),
-            "serve_moe": _serve_path("qwen2-moe-a2.7b", "serve_moe")}
+            "serve_moe": _serve_path("qwen2-moe-a2.7b", "serve_moe"),
+            "serve_chatglm": _serve_path("chatglm3-6b", "serve_chatglm"),
+            "serve_nemotron": _serve_path("nemotron-4-15b",
+                                          "serve_nemotron")}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1368,6 +1443,10 @@ def phase_tokens():
                    8)
     _tokens_engine("qwen2-moe-a2.7b", "serve_moe", 3,
                    (300, 1000, 2500, 4000), 8)
+    _tokens_engine("chatglm3-6b", "serve_chatglm", 4,
+                   (300, 1000, 2500, 4000), 8)
+    _tokens_engine("nemotron-4-15b", "serve_nemotron", 5,
+                   (300, 1000, 2500, 4000), 8)
 
 
 # ---------------------------------------------------------- profile (opt-in)
@@ -1495,6 +1574,49 @@ def _profile(model: str, windows) -> None:
               f"{groups}")
 
 
+def _profile_attention(arch: str, lens, page: int = 64) -> None:
+    """Profile one full-width attention model: the second half of the
+    6144-token prompt over 3072 history tokens in pages (K2 + K3), and the
+    smoke batch's decode tick (one fused step, K1)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.cdsp import prefill_chunk_paged
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import make_context
+    from repro_torch.models.transformer import forward
+    from repro_torch.serving.cache_manager import PagedKVCache
+    ctx = make_context("cuda")
+    dev = ctx.device
+    cfg = get_config(arch)
+    params = init_params(cfg, seed=0, device=dev)
+    npg = -(-(max(lens) + 16) // page)
+    kv = PagedKVCache(cfg, len(lens) * npg, page, device=dev)
+    for p in ("k", "v"):
+        kv.pools["0"][p].normal_()
+    table = torch.arange(len(lens) * npg, dtype=torch.int32,
+                         device=dev).reshape(len(lens), npg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
+    pos = torch.arange(3072, 6144, dtype=torch.int32, device=dev)[None]
+    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
+    caches = {"0": {"self": {"k": kv.pools["0"]["k"],
+                             "v": kv.pools["0"]["v"],
+                             "block_table": table[None].expand(
+                                 cfg.n_blocks, len(lens), npg)}}}
+    _profile(cfg.name, (
+        ("prefill_chunk_3072_hist_3072",
+         lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos, kv.pools,
+                                     table[3, :3072 // page].tolist(),
+                                     3072), 2,
+         ("K2 paged_flash_prefill", "K3 flash_attention")),
+        ("decode_tick_b4",
+         lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
+                         "decode", caches=caches, cache_len=clen), 8,
+         ("K1 paged_flash_decode",))))
+    del params, kv, caches
+    _free()
+
+
 def phase_profile():
     """Where a prefill chunk's and a decode tick's time goes at full width,
     for each served model: kernel time by group (torch.profiler) against
@@ -1511,36 +1633,7 @@ def phase_profile():
     dev, page = ctx.device, 64
     lens = [512, 2048, 4096, 6144]
 
-    cfg = get_config("llama3-8b")
-    params = init_params(cfg, seed=0, device=dev)
-    npg = -(-(max(lens) + 16) // page)
-    kv = PagedKVCache(cfg, len(lens) * npg, page, device=dev)
-    for p in ("k", "v"):
-        kv.pools["0"][p].normal_()
-    table = torch.arange(len(lens) * npg, dtype=torch.int32,
-                         device=dev).reshape(len(lens), npg)
-    toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
-    pos = torch.arange(3072, 6144, dtype=torch.int32, device=dev)[None]
-    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
-    tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
-    caches = {"0": {"self": {"k": kv.pools["0"]["k"],
-                             "v": kv.pools["0"]["v"],
-                             "block_table": table[None].expand(
-                                 cfg.n_blocks, len(lens), npg)}}}
-    # the second half of the 6144 prompt over 3072 history tokens, and the
-    # smoke batch's decode tick (one fused step)
-    _profile(cfg.name, (
-        ("prefill_chunk_3072_hist_3072",
-         lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos, kv.pools,
-                                     table[3, :3072 // page].tolist(),
-                                     3072), 2,
-         ("K2 paged_flash_prefill", "K3 flash_attention")),
-        ("decode_tick_b4",
-         lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
-                         "decode", caches=caches, cache_len=clen), 8,
-         ("K1 paged_flash_decode",))))
-    del params, kv, caches
-    _free()
+    _profile_attention("llama3-8b", lens, page)
 
     cfg = get_config("mamba2-1.3b")
     params = init_params(cfg, seed=0, device=dev)
@@ -1550,6 +1643,8 @@ def phase_profile():
         params, cfg, ctx, first,
         torch.arange(3072, dtype=torch.int32, device=dev)[None], none, [], 0)
     toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
+    pos = torch.arange(3072, 6144, dtype=torch.int32, device=dev)[None]
+    clen = torch.tensor(lens, dtype=torch.int32, device=dev)
     tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
     caches = {"0": {"self": {k: torch.cat([v] * len(lens), dim=1)
                              for k, v in aux["0"]["self"].items()}}}
@@ -1565,31 +1660,12 @@ def phase_profile():
     del params, none, aux, caches
     _free()
 
-    # Qwen1.5-MoE-A2.7B: the same chunk and tick shapes as Llama's, with
-    # each MoE stage under a range of its own (moe_stage_ms)
-    cfg = get_config("qwen2-moe-a2.7b")
-    params = init_params(cfg, seed=0, device=dev)
-    kv = PagedKVCache(cfg, len(lens) * npg, page, device=dev)
-    for p in ("k", "v"):
-        kv.pools["0"][p].normal_()
-    toks = torch.randint(0, cfg.vocab_size, (1, 3072), device=dev)
-    tick_toks = torch.randint(0, cfg.vocab_size, (len(lens), 1), device=dev)
-    caches = {"0": {"self": {"k": kv.pools["0"]["k"],
-                             "v": kv.pools["0"]["v"],
-                             "block_table": table[None].expand(
-                                 cfg.n_blocks, len(lens), npg)}}}
+    # Qwen1.5-MoE-A2.7B with each MoE stage under a range of its own
+    # (moe_stage_ms); then ChatGLM3-6B and Nemotron-4-15B
     with _moe_ranges():
-        _profile(cfg.name, (
-            ("prefill_chunk_3072_hist_3072",
-             lambda: prefill_chunk_paged(params, cfg, ctx, toks, pos,
-                                         kv.pools,
-                                         table[3, :3072 // page].tolist(),
-                                         3072), 2,
-             ("K2 paged_flash_prefill", "K3 flash_attention")),
-            ("decode_tick_b4",
-             lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
-                             "decode", caches=caches, cache_len=clen), 8,
-             ("K1 paged_flash_decode",))))
+        _profile_attention("qwen2-moe-a2.7b", lens, page)
+    _profile_attention("chatglm3-6b", lens, page)
+    _profile_attention("nemotron-4-15b", lens, page)
 
 
 def main(argv=None) -> int:

@@ -11,7 +11,14 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "mamba2-1.3b": "mamba2_1_3b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "chatglm3-6b": "chatglm3_6b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "llama3-70b": "llama3_70b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
+NAMES = tuple(_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -59,6 +59,12 @@
 //     head, one rescale of the accumulators, exp2f, then P.V (thread =
 //     16-byte column chunk x key group) from the staged V rows.  P stays
 //     fp32.
+//   - GQA groups of 1, 2, 4, 6, 8 and 16 heads.  Above 8 heads, the two
+//     halves of the block's threads each keep the P.V accumulators of half
+//     the group over the same staged V tile (K/V leave device memory once
+//     per tile for all 16 heads), and the block runs at two per SM (77 KB
+//     of shared memory at bf16, head_dim 128), with up to 255 registers a
+//     thread for the softmax state of 16 heads.
 //   - K/V rows are XOR-swizzled by 16-byte chunk so that the score reads,
 //     the P.V reads and the copies are free of bank conflicts.
 //   - q, the pools and k_new/v_new must be 16-byte aligned (cp.async reads
@@ -80,6 +86,13 @@ constexpr int TPK = NT / TK;              // score threads per key
 // tools/decode_variants.py, PERF.md).
 constexpr int RING_BYTES = 64 * 1024;
 constexpr int MIN_BLOCKS = 3;             // blocks per SM the registers allow
+                                          //   (Cfg::MINB: fewer where the
+                                          //   group or the ring asks more)
+// A GQA group above 8 heads (ChatGLM3's 16) is served by this many halves
+// of the block's threads in P.V, each holding the accumulators of G / 2
+// heads over the same staged V tile (1: every thread holds all G heads,
+// which takes two blocks per SM; tools/decode_variants.py, PERF.md).
+constexpr int BIG_GROUP_SPLIT = 2;
 constexpr int MERGE_GROUPS = 4;           // split groups of the merge kernel
 constexpr int ROW_NONE = -1;              // no valid key: zero-filled
 constexpr int ROW_NEW = -2;               // the appended key: from k_new
@@ -116,7 +129,14 @@ struct Cfg {
   static constexpr int NS_ = RING_BYTES / (2 * TILE);
   static constexpr int NS = NS_ < 2 ? 2 : (NS_ > 4 ? 4 : NS_);
   static constexpr int RING = NS * 2 * TILE;
-  static constexpr int KG = NT / CH;                 // P.V key groups
+  // P.V: HS halves of NTH threads, each for GH of the G heads, with KG
+  // key groups of CH chunk threads
+  static constexpr int HS = G > 8 ? BIG_GROUP_SPLIT : 1;
+  static constexpr int GH = G / HS;
+  static constexpr int NTH = NT / HS;
+  static constexpr int KG = NTH / CH;
+  static_assert(G % HS == 0 && NTH % 32 == 0 && NTH % CH == 0,
+                "head halves: whole heads, whole warps, whole key rows");
   // [ring | q (G x D fp32) | p (TK x G) | warp maxima (NW x G) | rows];
   // the warps' final sums reuse the ring
   static_assert(NW * G * D * 4 <= RING, "final sums fit the ring");
@@ -125,7 +145,14 @@ struct Cfg {
   static constexpr int OFF_W = OFF_P + TK * G * 4;
   static constexpr int OFF_ROW = OFF_W + NW * G * 4;
   static constexpr int SMEM = OFF_ROW + NS * TK * 4;
-  static_assert(CH % TPK == 0 && NT % CH == 0 && TK % (NT / CH) == 0,
+  // blocks per SM for the registers: MIN_BLOCKS, two above 8 heads (the
+  // per-head softmax state of 16 heads alone holds ~80 registers a
+  // thread), and no more than the SM's 228 KB of shared memory holds
+  // (fp32 head_dim 128: one)
+  static constexpr int FIT = 228 * 1024 / (SMEM + 1024);
+  static constexpr int WANT = G > 8 ? 2 : MIN_BLOCKS;
+  static constexpr int MINB = FIT < 1 ? 1 : (FIT < WANT ? FIT : WANT);
+  static_assert(CH % TPK == 0 && NT % CH == 0 && TK % KG == 0,
                 "thread mapping");
   static_assert((TK * CH) % NT == 0, "copy mapping");
   // rows per 128-byte line, and the chunk XOR that spreads the score
@@ -158,8 +185,8 @@ __device__ __forceinline__ void unpack16(const void* src, float (&f)[4]) {
   f[0] = raw.x; f[1] = raw.y; f[2] = raw.z; f[3] = raw.w;
 }
 
-// N fp32 values from shared memory (16-byte loads where N allows; the
-// callers' offsets are multiples of N floats).
+// N fp32 values from shared memory (16- or 8-byte loads where N allows;
+// the callers' offsets are multiples of 4 floats, or of N).
 template <int N>
 __device__ __forceinline__ void lds(const float* src, float (&f)[N]) {
   if constexpr (N % 4 == 0) {
@@ -169,6 +196,12 @@ __device__ __forceinline__ void lds(const float* src, float (&f)[N]) {
       f[4 * i] = x.x; f[4 * i + 1] = x.y; f[4 * i + 2] = x.z;
       f[4 * i + 3] = x.w;
     }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 x = reinterpret_cast<const float2*>(src)[i];
+      f[2 * i] = x.x; f[2 * i + 1] = x.y;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = src[i];
@@ -176,10 +209,11 @@ __device__ __forceinline__ void lds(const float* src, float (&f)[N]) {
 }
 
 template <typename T, int D, int G, bool DENSE>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+__global__ void __launch_bounds__(NT, Cfg<T, D, G>::MINB)
     decode_split_kernel(DecodeParams p) {
   using C = Cfg<T, D, G>;
   constexpr int EV = C::EV, CH = C::CH, NS = C::NS, KG = C::KG;
+  constexpr int HS = C::HS, GH = C::GH, NWH = C::NTH / 32;
   extern __shared__ __align__(128) uint8_t smem[];
   float* qs = reinterpret_cast<float*>(smem + C::OFF_Q);
   float* sp = reinterpret_cast<float*>(smem + C::OFF_P);
@@ -302,16 +336,20 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     cp_async_commit();
   }
 
-  float m[G], l[G], acc[G][EV];
+  // m and l of all G heads (every thread), acc of this thread's GH heads
+  float m[G], l[G], acc[GH][EV];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = NEG_INF_F;
     l[g] = 0.f;
+  }
+#pragma unroll
+  for (int g = 0; g < GH; ++g)
 #pragma unroll
     for (int e = 0; e < EV; ++e) acc[g][e] = 0.f;
-  }
   const int kk = tid / TPK, part = tid % TPK;   // score mapping
-  const int pc = tid % CH, pg = tid / CH;       // P.V mapping
+  // P.V mapping: head half hh, chunk pc, key group pg
+  const int hh = tid / C::NTH, pc = tid % CH, pg = (tid % C::NTH) / CH;
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % NS;
@@ -383,19 +421,28 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     }
     __syncthreads();
     if (moved) {
+      // this half's factors, picked by selects (no indexed registers)
+      float ah[GH];
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+      for (int g = 0; g < GH; ++g) ah[g] = alpha[g];
 #pragma unroll
-        for (int e = 0; e < EV; ++e) acc[g][e] *= alpha[g];
+      for (int h = 1; h < HS; ++h)
+#pragma unroll
+        for (int g = 0; g < GH; ++g)
+          ah[g] = hh == h ? alpha[h * GH + g] : ah[g];
+#pragma unroll
+      for (int g = 0; g < GH; ++g)
+#pragma unroll
+        for (int e = 0; e < EV; ++e) acc[g][e] *= ah[g];
     }
 #pragma unroll
     for (int j = 0; j < TK / KG; ++j) {
       const int r = pg + j * KG;
-      float vf[EV], pe[G];
+      float vf[EV], pe[GH];
       unpack16(vt + C::chunk(r, pc) * 16, vf);
-      lds<G>(sp + r * G, pe);
+      lds<GH>(sp + r * G + hh * GH, pe);
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+      for (int g = 0; g < GH; ++g)
 #pragma unroll
         for (int e = 0; e < EV; ++e)
           acc[g][e] = fmaf(pe[g], vf[e], acc[g][e]);
@@ -409,31 +456,37 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   // shuffles, then the warps through shared memory (the ring is free).
   cp_async_wait<0>();
   __syncthreads();
+  // A warp lies in one head half: its slots of red hold that half's
+  // heads, and a head sums the NWH warps of its half.
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GH; ++g) {
 #pragma unroll
     for (int e = 0; e < EV; ++e) {
 #pragma unroll
       for (int o = CH; o < 32; o <<= 1)
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
     }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
     const float lw = warp_sum(l[g]);
     if (lane == 0) sw[warp * G + g] = lw;
   }
   if (lane < CH) {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < GH; ++g)
 #pragma unroll
       for (int e = 0; e < EV; ++e)
-        red[(warp * G + g) * D + pc * EV + e] = acc[g][e];
+        red[(warp * G + hh * GH + g) * D + pc * EV + e] = acc[g][e];
   }
   __syncthreads();
   for (int i = tid; i < G * D; i += NT) {
     const int g = i / D, d = i - g * D;
+    const int w0 = g / GH * NWH;
     float A = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) A += red[(w * G + g) * D + d];
+    for (int w = 0; w < NWH; ++w) A += red[((w0 + w) * G + g) * D + d];
     const size_t row = prow + size_t(g) * p.splits;
     p.part_acc[row * D + d] = A;
     if (d == 0) {
@@ -526,7 +579,9 @@ int by_group(const DecodeParams& p, cudaStream_t stream) {
     case 1: return launch<T, D, 1>(p, stream);
     case 2: return launch<T, D, 2>(p, stream);
     case 4: return launch<T, D, 4>(p, stream);
+    case 6: return launch<T, D, 6>(p, stream);
     case 8: return launch<T, D, 8>(p, stream);
+    case 16: return launch<T, D, 16>(p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -144,6 +144,9 @@ _PD_ARGS = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [
 _TARGET_BLOCKS = 2 * 3 * 132
 # keys per tile of the split kernel (TK in csrc/paged_decode.cu)
 _TILE = 64
+# GQA groups (H / KVH) the split kernel is built for (by_group in
+# csrc/paged_decode.cu); any other group raises on the card
+GROUPS = (1, 2, 4, 6, 8, 16)
 
 
 def plan_splits(npg: int, B: int, KVH: int, page: int) -> Tuple[int, int]:
@@ -209,9 +212,9 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(
             f"paged_flash_decode: shapes q {tuple(q.shape)} pool "
             f"{tuple(k_pool.shape)} table {tuple(block_tables.shape)}")
-    if H // KVH not in (1, 2, 4, 8):
+    if H // KVH not in GROUPS:
         raise ValueError(f"paged_flash_decode: GQA group {H // KVH} "
-                         "not in (1, 2, 4, 8)")
+                         f"not in {GROUPS}")
     append = k_new is not None
     tensors = (q, k_pool, v_pool) + ((k_new, v_new) if append else ())
     _check("paged_flash_decode", *tensors)
@@ -285,9 +288,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             or k_cache.shape[0] != B):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)} cache "
                          f"{tuple(k_cache.shape)}")
-    if H // KVH not in (1, 2, 4, 8):
+    if H // KVH not in GROUPS:
         raise ValueError(f"flash_decode: GQA group {H // KVH} not in "
-                         "(1, 2, 4, 8)")
+                         f"{GROUPS}")
     _check("flash_decode", q, k_cache, v_cache)
     dev = q.device
     ln = lengths.to(torch.int32).reshape(B).contiguous()

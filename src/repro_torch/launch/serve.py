@@ -5,11 +5,14 @@
 Runs the real execution engine on the CUDA card (``--device cpu`` for the
 plain PyTorch path): CDSP chunked prefill straight into KV pages, KV
 hand-off, continuous-batch paged decode — and prints per-request plans and
-latency metrics from the event clock, for the reduced model
-(``--arch mamba2-1.3b`` serves the attention-free Mamba-2,
-``--arch qwen2-moe-a2.7b`` the MoE).  ``serve`` is the entry point for
-any config (``chip_smoke.py`` drives Llama-3-8B, Mamba-2-1.3B and
-Qwen1.5-MoE-A2.7B at their published widths through it).
+latency metrics from the event clock, for the reduced model of any
+registered config (``--arch``: ``yi-9b``, ``llama3-8b``, ``llama3-70b``,
+``chatglm3-6b``, ``nemotron-4-15b``, ``phi4-mini-3.8b``, the M-RoPE
+``qwen2-vl-72b``, the attention-free ``mamba2-1.3b``, the MoEs
+``qwen2-moe-a2.7b`` and ``mixtral-8x22b``).  ``serve`` is the entry point
+for any config (``chip_smoke.py`` drives Llama-3-8B, Mamba-2-1.3B,
+Qwen1.5-MoE-A2.7B, ChatGLM3-6B and Nemotron-4-15B at their published
+widths through it).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.configs.registry import NAMES
 from repro_torch.core.latency_model import table1_model
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.request import Request
@@ -47,7 +51,7 @@ def serve(cfg, params, prompts: Sequence[np.ndarray], *, ctx,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--arch", default="yi-9b", choices=NAMES)
     ap.add_argument("--policy", default="tetris",
                     choices=["tetris", "single_chunk", "loongserve_disagg",
                              "fixed_sp_8", "fixed_sp_16"])

@@ -6,7 +6,10 @@ Single-device branches of the reference (models/attention.py):
       LSE merge on the card);
   decode — one token per row: the fused paged append+attend tick (K1 on
       the card) over {"k","v","block_table"} pools, or dense decode (K4 on
-      the card) over {"k","v"} buffers.
+      the card) over {"k","v"} buffers; with a sliding window, dense
+      decode may keep a ring buffer of the last S_max <= window tokens
+      (``ctx.ring_cache``) or attend over a window + 8 slice of a buffer
+      of at least 4 windows (``ctx.window_slice``).
 """
 
 from __future__ import annotations
@@ -76,11 +79,31 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     if mode == "decode":
         assert cache is not None and cache_len is not None
         rows = torch.arange(B, device=x.device)
+        S_max = cache["k"].shape[1]
+        ring = ctx.ring_cache and window is not None and S_max <= window
+        # the new token's slot: the ring buffer keeps the last S_max tokens
+        slot = (cache_len % S_max if ring else cache_len).long()
         k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
-        k_cache[rows, cache_len.long()] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, cache_len.long()] = v[:, 0].to(v_cache.dtype)
-        o = ops.decode_attention(q[:, 0], k_cache, v_cache, cache_len + 1,
-                                 window=window, impl=ctx.impl)
+        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+        k_att, v_att, lengths, win = k_cache, v_cache, cache_len + 1, window
+        if ring:
+            # attention does not depend on the order of the keys, so the
+            # slots' order is irrelevant once the buffer wraps
+            lengths, win = torch.clamp(lengths, max=S_max), None
+        elif ctx.window_slice and window is not None \
+                and S_max >= 4 * window:
+            # attend over a slice of window + 8 keys that holds the
+            # window, not over the whole buffer
+            wbuf = window + 8
+            start = torch.clamp(cache_len - (wbuf - 1), 0, S_max - wbuf)
+            idx = (start[:, None] + torch.arange(
+                wbuf, device=x.device)[None]).long()
+            k_att, v_att = (k_cache[rows[:, None], idx],
+                            v_cache[rows[:, None], idx])
+            lengths = lengths - start
+        o = ops.decode_attention(q[:, 0], k_att, v_att, lengths, window=win,
+                                 impl=ctx.impl)
         return out_proj(o[:, None], p), {"k": k_cache, "v": v_cache}
 
     if mode not in ("train", "prefill"):

@@ -36,13 +36,28 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def mrope_sections(rot: int, sections) -> torch.Tensor:
+    """Which of M-RoPE's three position rows (temporal, height, width)
+    drives each of the ``rot / 2`` frequencies: ``sections`` (given for
+    head_dim 128) scaled to ``rot / 2`` as the reference and HF qwen2-vl
+    do, each frequency in the section its index falls in.  (rot/2,) int."""
+    secs = torch.tensor(sections, dtype=torch.float64)
+    bounds = torch.cumsum((secs * ((rot // 2) / secs.sum())).to(torch.int32),
+                          0)
+    idx = torch.arange(rot // 2)
+    return (idx[None] >= bounds[:, None]).sum(0).clamp(0, 2)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int32.  Standard and partial
-    rotary; cos/sin are cast to the activation dtype before rotating."""
+    """x: (B, S, H, D); positions: (B, S) int32, or (3, B, S) for M-RoPE.
+    Standard, partial (the first ``partial_rotary_factor`` of head_dim)
+    and M-RoPE (qwen2-vl: three position rows, each driving one section
+    of the frequencies); cos/sin are cast to the activation dtype before
+    rotating."""
     if cfg.rope_type == "none":
         return x
-    if cfg.rope_type not in ("standard", "partial"):
+    if cfg.rope_type not in ("standard", "partial", "mrope"):
         raise NotImplementedError(f"rope_type {cfg.rope_type!r}")
     dh = x.shape[-1]
     rot = int(dh * cfg.partial_rotary_factor) if cfg.rope_type == "partial" \
@@ -50,9 +65,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     rot = (rot // 2) * 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     inv = rope_freqs(rot, cfg.rope_theta, x.device)
-    if positions.dim() == 3:
-        positions = positions[0]
-    ang = positions[..., None].float() * inv                   # (B, S, rot/2)
+    if cfg.rope_type == "mrope":
+        if positions.dim() != 3:
+            raise ValueError("mrope needs (3, B, S) positions")
+        ang = positions[..., None].float() * inv           # (3, B, S, rot/2)
+        one_hot = torch.nn.functional.one_hot(
+            mrope_sections(rot, cfg.mrope_sections), 3).to(
+                ang.dtype).to(x.device)                     # (rot/2, 3)
+        ang = torch.einsum("tbsk,kt->bsk", ang, one_hot)    # (B, S, rot/2)
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        ang = positions[..., None].float() * inv               # (B, S, rot/2)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     out = _rotate(x_rot, cos, sin)

@@ -116,7 +116,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     tensor normal with std ``1/sqrt(fan_in)`` (fan_in = second-to-last
     dim).  Torch's generator does not reproduce the reference's numbers;
     tests bridge the reference's tree with ``params_from_numpy`` instead.
-    ``device`` defaults to CUDA (raising without a card)."""
+    Padded query heads (``cfg.pad_heads_to``) are zeros in ``wq`` and
+    ``wo``.  ``device`` defaults to CUDA (raising without a card)."""
     device = resolve_device(device)
     dt = getattr(torch, dtype or cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -142,9 +143,32 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
         w = torch.empty(shape, dtype=dt, device=device)
         return w.normal_(0.0, std, generator=gen)
 
-    if cfg.pad_heads_to and cfg.pad_heads_to > cfg.n_heads:
-        raise NotImplementedError("padded query heads are not ported yet")
-    return _map_tree(param_shapes(cfg), make)
+    params = _map_tree(param_shapes(cfg), make)
+    # zero the padded query heads (phi4: 24 -> 32) so that they are inert:
+    # their wq columns and wo rows
+    dh = cfg.head_dim_
+    for idx in padded_head_indices(cfg):
+        for i, spec in enumerate(cfg.pattern):
+            if spec.mixer == "attn":
+                blk = params["blocks"][str(i)]
+                blk["wq"][..., idx * dh:(idx + 1) * dh] = 0
+                blk["wo"][..., idx * dh:(idx + 1) * dh, :] = 0
+    return params
+
+
+def padded_head_indices(cfg: ModelConfig) -> list:
+    """Indices (in the padded head axis) of the inert zero pads
+    (reference params.py:240).  Pads are interleaved per KV group — each
+    group of n_heads / n_kv real heads is padded to padded_heads / n_kv —
+    so the GQA mapping ``h // group`` of the real heads is unchanged."""
+    if not cfg.pad_heads_to or cfg.pad_heads_to <= cfg.n_heads:
+        return []
+    kv = cfg.n_kv_heads
+    if cfg.n_heads % kv or cfg.pad_heads_to % kv:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads padded to "
+                         f"{cfg.pad_heads_to} over {kv} KV heads")
+    rg, pg = cfg.n_heads // kv, cfg.pad_heads_to // kv
+    return [g * pg + j for g in range(kv) for j in range(rg, pg)]
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:

@@ -3,7 +3,8 @@
 The reference ``ExecContext`` names mesh axes for GSPMD sharding; this slice
 of the port runs on one device, so the context carries only what the model
 and the serving engine read: the device, the kernel choice (``impl``), the
-runtime window override, the MoE dispatch strategy, and the paged-pool
+runtime window override, the MoE dispatch strategy, the two sliding-window
+decode branches (``window_slice``, ``ring_cache``), and the paged-pool
 queries, which all answer "unsharded" (``mesh`` is always None here).
 """
 
@@ -41,6 +42,12 @@ class ExecContext:
     sp_axis: None = None
     # gather/scatter MoE dispatch instead of one-hot einsums
     moe_gather_dispatch: bool = False
+    # sliding-window dense decode: attend over a slice of window + 8 keys
+    # of the full buffer (the new KV is still written into the buffer)
+    window_slice: bool = False
+    # sliding-window dense decode over a ring buffer of the last S_max
+    # (<= window) tokens
+    ring_cache: bool = False
 
     def pool_axis(self, role: str) -> None:
         if role not in ("decode", "prefill"):

@@ -287,6 +287,74 @@ def test_flash_attention_tile_classes_on_card(D):
         assert not o.transpose(1, 2)[dead].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("G", [6, 16])
+def test_flash_attention_tile_classes_at_groups_6_and_16_on_card(G, D):
+    """K3 in bf16 at GQA groups that are not a power of two (6: 21
+    queries and 126 live rows in a 128-row tile) or fill a tile with 8
+    queries (16): key positions permuted across tiles, 17 queries, rows
+    with no valid key, and a window."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator().manual_seed(12)
+    KVH = 2
+    for Sq, Sk, offset, perm, window in ((300, 300, 0, True, None),
+                                         (17, 17, 0, False, None),
+                                         (40, 40, -20, False, None),
+                                         (130, 250, 120, False, 64)):
+        q = torch.randn(1, Sq, G * KVH, D, generator=g).to(dev,
+                                                           torch.bfloat16)
+        k = torch.randn(1, Sk, KVH, D, generator=g).to(dev, torch.bfloat16)
+        v = torch.randn(1, Sk, KVH, D, generator=g).to(dev, torch.bfloat16)
+        qp = torch.arange(offset, offset + Sq, dtype=torch.int32,
+                          device=dev)
+        kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+        if perm:
+            idx = torch.randperm(Sk, generator=g).to(dev)
+            kp, k, v = kp[idx], k[:, idx], v[:, idx]
+        o, lse = flash_attention(q, k, v, qp, kp, window=window)
+        po, plse = flash_attention_plain(q, k, v, qp, kp, window=window)
+        _bf16_close(o, po)
+        torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+        dead = plse <= -1e29
+        assert bool((lse[dead] == -1e30).all())
+        assert not o.transpose(1, 2)[dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [8, 64, 48])
+@pytest.mark.parametrize("H,KVH", [(48, 8), (32, 2)])
+def test_paged_prefill_nan_slots_at_groups_6_and_16_on_card(H, KVH, page):
+    """K2 in bf16 at Nemotron-4-15B's heads (group 6) and ChatGLM3-6B's
+    (group 16), head_dim 128, with NaN in the last page's unused slots
+    inside a key tile (pages 8 and 64 by TMA, 48 by cp.async)."""
+    dev = _card()
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import (
+        paged_flash_prefill, paged_flash_prefill_plain)
+    g = torch.Generator().manual_seed(13)
+    hist, Sq = 1001, 150
+    q = torch.randn(1, Sq, H, 128, generator=g).to(dev, torch.bfloat16)
+    kd = torch.randn(1, hist, KVH, 128, generator=g).to(dev, torch.bfloat16)
+    vd = torch.randn(1, hist, KVH, 128, generator=g).to(dev, torch.bfloat16)
+    kp, table = chip_smoke._pool_from_dense(kd, page, g.manual_seed(14))
+    vp, _ = chip_smoke._pool_from_dense(vd, page, g.manual_seed(14))
+    last = table[0, -1].long()
+    kp[last, hist % page:] = float("nan")
+    vp[last, hist % page:] = float("nan")
+    hl = torch.tensor([hist], dtype=torch.int32, device=dev)
+    qp = hist + torch.arange(Sq, dtype=torch.int32, device=dev)[None]
+    for window in (None, 500):
+        o, lse = paged_flash_prefill(q, kp, vp, table, hl, qp, window=window)
+        po, plse = paged_flash_prefill_plain(q, kp, vp, table, hl, qp,
+                                             window=window)
+        assert torch.isfinite(o.float()).all()
+        _bf16_close(o, po)
+        torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+
+
 _TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (1e-5, 1e-4)}
 
 
@@ -355,7 +423,7 @@ def test_paged_decode_nan_slots_inside_a_tile_on_card(page):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [32, 128])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 6, 8, 16])
 def test_paged_decode_append_slot_in_a_later_split_on_card(G, D, dtype):
     """The appended key lies in a tile that a block other than the
     writing one (split 0) loads, and the pool's slot holds NaN before the
@@ -377,7 +445,8 @@ def test_paged_decode_append_slot_in_a_later_split_on_card(G, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S,G,window,offset", [
-    (203, 4, 50, 7), (1000, 8, 300, 33), (77, 1, 10, 0)])
+    (203, 4, 50, 7), (1000, 8, 300, 33), (77, 1, 10, 0), (300, 6, 100, 5),
+    (500, 16, 200, 0)])
 def test_dense_decode_ragged_window_offset_on_card(S, G, window, offset,
                                                    dtype):
     """K4 over a cache whose S is not a multiple of the 64-key tile, with
@@ -444,6 +513,61 @@ def test_decode_kernels_raise_on_unaligned_bf16(which):
                                     dtype=torch.bfloat16), ln)
     torch.cuda.synchronize()
     assert torch.isfinite(o.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [3, 12, 32])
+def test_decode_kernels_raise_on_other_groups(G):
+    """K1 and K4 are built for the groups of ``flash_decode.GROUPS``; any
+    other group raises before a launch (it never runs the plain
+    version)."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+    KVH, D, page = 2, 32, 16
+    q = torch.zeros(2, G * KVH, D, device=dev)
+    pool = torch.zeros(4, page, KVH, D, device=dev)
+    table = torch.arange(4, dtype=torch.int32, device=dev).reshape(2, 2)
+    ln = torch.tensor([20, 3], dtype=torch.int32, device=dev)
+    before = (paged_flash_decode.launches, flash_decode.launches)
+    with pytest.raises(ValueError, match="GQA group"):
+        paged_flash_decode(q, pool, pool, table, ln)
+    with pytest.raises(ValueError, match="GQA group"):
+        flash_decode(q, torch.zeros(2, 32, KVH, D, device=dev),
+                     torch.zeros(2, 32, KVH, D, device=dev), ln)
+    assert (paged_flash_decode.launches, flash_decode.launches) == before
+
+
+@pytest.mark.cuda
+def test_decode_kernel_instances_ptxas_report_on_card():
+    """K1/K4's split kernel is built for bf16 and fp32, head_dim 32 and
+    128, every GQA group of ``flash_decode.GROUPS`` and both modes (paged,
+    dense): the build's ``-Xptxas -v`` report names each instance with
+    its registers.  The instances at group 6, and at group 16 with
+    head_dim 32, spill nothing; the head_dim-128 instances at 16 spill a
+    few bytes at 255 registers (PERF.md section 6)."""
+    _card()
+    import re
+    import chip_smoke
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import GROUPS
+    _build.library("paged_decode")
+    log = _build.BUILD / "paged_decode.log"
+    report = chip_smoke._ptxas_report(log.read_text())
+    found = {}
+    for name, text in report.items():
+        m = re.search(r"decode_split_kernel<(\w+), (?:\(int\))?(\d+), "
+                      r"(?:\(int\))?(\d+), (?:\(bool\))?(\w+)>", name)
+        if m:
+            found[m.groups()] = text
+    want = {(t, str(d), str(g), dense) for t in ("__nv_bfloat16", "float")
+            for d in (32, 128) for g in GROUPS for dense in ("0", "1")}
+    assert set(found) == want, sorted(set(found) ^ want)
+    assert all("registers" in text for text in found.values())
+    for key, text in found.items():
+        if key[2] == "6" or (key[2] == "16" and key[1] == "32"):
+            assert "0 bytes spill stores, 0 bytes spill loads" in text, \
+                (key, text)
 
 
 # Qwen1.5-MoE-A2.7B's attention: 16 heads over 16 KV heads of 128 (GQA

@@ -139,6 +139,24 @@ SCENARIOS = {
         policy="two_chunk",
         engine=dict(max_batch=4, max_seq=256, block_size=32),
         trace=dict(seed=7, n=2, lo=40, hi=90, gap=0.03, out_len=3)),
+    # reduced Qwen2-VL-72B: M-RoPE, so every chunk and decode tick hands
+    # the model (3, B, S) positions built by the engine; two chunks per
+    # prompt over paged history
+    "mrope_multichunk": dict(
+        arch="qwen2-vl-72b",
+        spec=dict(n_prefill=8, n_decode=2, sp_candidates=(1, 2, 4)),
+        policy="two_chunk",
+        engine=dict(max_batch=4, max_seq=256, block_size=32),
+        trace=dict(seed=7, n=2, lo=40, hi=90, gap=0.03, out_len=3)),
+    # reduced Mixtral-8x22B: an MoE under a sliding window of 8, with
+    # prompts of 40-90 tokens in two chunks, so the history chunk and the
+    # decode ticks mask by window
+    "swa_moe_multichunk": dict(
+        arch="mixtral-8x22b",
+        spec=dict(n_prefill=8, n_decode=2, sp_candidates=(1, 2, 4)),
+        policy="two_chunk",
+        engine=dict(max_batch=4, max_seq=256, block_size=32),
+        trace=dict(seed=7, n=2, lo=40, hi=90, gap=0.03, out_len=3)),
     # tests/test_paged_engine.py:200 — decode growth exhausts a tight pool
     "block_exhaustion": dict(
         spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
@@ -170,32 +188,22 @@ def test_engine_records_match_reference(scenario, reduced_params_cache):
         assert port.preempt_log, "the tight pool must preempt"
     if scenario == "preempt_requeue":
         assert port.reqs[0].preemptions == 1
-    if scenario in ("mamba_multichunk", "moe_multichunk"):
+    if scenario.endswith("multichunk"):
         assert all(len(r.chunk_plan) == 2 for r in port.reqs.values())
+    if scenario == "swa_moe_multichunk":
+        assert cfg.sliding_window == 8
+        assert all(r.prompt_len > 2 * 8 for r in port.reqs.values())
 
 
-def test_serve_cli_runs_on_cpu(capsys):
-    """The port's launcher end to end on the plain path: every request
-    gets a chunk plan and tokens, and the latency summary prints."""
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b",
+                                  "chatglm3-6b", "qwen2-vl-72b"])
+def test_serve_cli_runs_on_cpu(arch, capsys):
+    """The port's launcher end to end on the plain path, for the reduced
+    dense default (yi-9b), the attention-free Mamba-2, the MoE, ChatGLM3
+    (partial rotary, q/k/v bias) and Qwen2-VL (M-RoPE): every request gets
+    a chunk plan and tokens, and the latency summary prints."""
     from repro_torch.launch import serve
-    serve.main(["--device", "cpu", "--requests", "3", "--output-len", "3"])
-    out = capsys.readouterr().out
-    assert out.count("plan=[(") == 3 and "TTFT p50" in out
-
-
-def test_serve_cli_runs_mamba_on_cpu(capsys):
-    """The launcher serves the attention-free Mamba-2 on the plain path."""
-    from repro_torch.launch import serve
-    serve.main(["--device", "cpu", "--arch", "mamba2-1.3b", "--requests",
-                "3", "--output-len", "3"])
-    out = capsys.readouterr().out
-    assert out.count("plan=[(") == 3 and "TTFT p50" in out
-
-
-def test_serve_cli_runs_moe_on_cpu(capsys):
-    """The launcher serves the reduced Qwen1.5-MoE on the plain path."""
-    from repro_torch.launch import serve
-    serve.main(["--device", "cpu", "--arch", "qwen2-moe-a2.7b",
-                "--requests", "3", "--output-len", "3"])
+    serve.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                "--output-len", "3"])
     out = capsys.readouterr().out
     assert out.count("plan=[(") == 3 and "TTFT p50" in out

@@ -69,6 +69,10 @@ def _tables(rng, lengths, page, n_pages, extra_cols=0):
     (1, 128, 128, 4, 1, 32, 16, 0),        # window, GQA group 4
     (1, 32, 32, 2, 2, 32, None, -8),       # rows with no valid key
     (1, 128, 128, 8, 2, 128, None, 0),     # head_dim 128
+    (2, 64, 128, 12, 2, 32, None, 64),     # GQA group 6
+    (1, 128, 128, 12, 2, 32, 24, 0),       # group 6, window
+    (2, 64, 128, 16, 1, 32, None, 64),     # group 16
+    (1, 128, 128, 16, 1, 32, 24, 0),       # group 16, window
 ])
 def test_flash_attention_plain_matches_pallas(B, Sq, Sk, H, KVH, D, window,
                                               offset):
@@ -93,6 +97,10 @@ def test_flash_attention_plain_matches_pallas(B, Sq, Sk, H, KVH, D, window,
     ([24, 0], 16, 4, 2, 32, 8, None),       # page 8, a row without history
     ([45], 19, 4, 1, 32, 16, 20),           # ragged, window, group 4
     ([64, 33], 8, 2, 2, 128, 32, None),     # head_dim 128, page 32
+    ([24, 0], 16, 12, 2, 32, 8, None),      # group 6
+    ([45], 19, 12, 2, 32, 16, 20),          # group 6, window
+    ([24, 0], 16, 16, 1, 32, 8, None),      # group 16
+    ([45], 19, 16, 1, 32, 16, 20),          # group 16, window
 ])
 def test_paged_prefill_plain_matches_pallas(hist, Sq, H, KVH, D, page,
                                             window):
@@ -119,6 +127,10 @@ def test_paged_prefill_plain_matches_pallas(hist, Sq, H, KVH, D, page,
     ([13, 0, 5], (1,), 4, 4, 32, 8, None, 0),      # padded row, group 1
     ([40, 17], (), 4, 2, 32, 16, 12, 2),           # window + POS_PAD columns
     ([70, 3, 0], (2,), 8, 2, 128, 32, None, 1),    # head_dim 128, group 4
+    ([13, 0, 5], (1,), 12, 2, 32, 8, None, 0),     # group 6, padded row
+    ([40, 17], (), 12, 2, 32, 16, 12, 2),          # group 6, window
+    ([13, 0, 5], (1,), 16, 1, 32, 8, None, 0),     # group 16, padded row
+    ([40, 17], (), 16, 1, 32, 16, 12, 2),          # group 16, window
 ])
 def test_paged_decode_fused_append_matches_pallas(lengths, pad_rows, H, KVH,
                                                   D, page, window, extra):
@@ -185,6 +197,10 @@ def test_paged_decode_all_masked_rows_match_pallas():
     ([300, 129], 512, 8, 2, 128, 50, 0),    # window, group 4, head_dim 128
     ([90, 20], 64, 4, 4, 32, None, 30),     # kv_offset (cache starts at 30)
     ([70, 45], 256, 8, 1, 32, 16, 10),      # window + offset, group 8
+    ([40, 64, 0], 64, 12, 2, 32, None, 0),  # group 6, an empty row
+    ([70, 45], 256, 12, 2, 32, 16, 10),     # group 6, window + offset
+    ([40, 64, 0], 64, 16, 1, 32, None, 0),  # group 16, an empty row
+    ([70, 45], 256, 16, 1, 32, 16, 10),     # group 16, window + offset
 ])
 def test_flash_decode_plain_matches_pallas(lengths, S, H, KVH, D, window,
                                            offset):
@@ -336,6 +352,8 @@ def _split_decode_emulation(q, k, v, lengths, *, table=None, page_pos=None,
     ([200, 3, 0], (2,), 8, 2, 128, 32, None, 1),   # head_dim 128, group 4
     ([700, 64], (), 16, 2, 32, 64, None, 0),       # group 8, many splits
     ([500], (), 8, 4, 128, 128, 130, 0),           # page 128, window
+    ([300, 0, 90], (1,), 12, 2, 32, 16, 60, 1),    # group 6
+    ([400, 70], (), 16, 1, 32, 8, None, 0),        # group 16, page 8
 ])
 def test_split_decode_order_matches_plain_and_pallas(lengths, pad_rows, H,
                                                      KVH, D, page, window,
@@ -403,6 +421,8 @@ def test_split_decode_order_matches_plain_and_pallas(lengths, pad_rows, H,
     ([70, 45], 256, 8, 1, 32, 16, 10),      # window + offset, group 8
     ([203, 0, 150], 203, 8, 2, 128, None, 0),  # S not a multiple of 64
     ([190, 77], 203, 4, 2, 32, 70, 7),      # ragged S, window, offset
+    ([190, 0], 203, 12, 2, 32, 70, 7),      # group 6
+    ([250, 30], 256, 16, 1, 32, None, 0),   # group 16
 ])
 def test_split_decode_order_dense_matches_plain_and_pallas(lengths, S, H, KVH,
                                                            D, window, offset):

@@ -23,9 +23,22 @@ from repro_torch.models.params import (count_params, init_params,
 from repro_torch.models.sharding import CPU_CTX, make_context
 from repro_torch.models.transformer import forward
 
-ARCHS = ["llama3-8b", "yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b"]
-ATTN_ARCHS = ["llama3-8b", "yi-9b", "qwen2-moe-a2.7b"]
+DENSE_FAMILIES = ["chatglm3-6b", "nemotron-4-15b", "phi4-mini-3.8b",
+                  "llama3-70b", "qwen2-vl-72b", "mixtral-8x22b"]
+ARCHS = ["llama3-8b", "yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b",
+         *DENSE_FAMILIES]
+ATTN_ARCHS = ["llama3-8b", "yi-9b", "qwen2-moe-a2.7b", *DENSE_FAMILIES]
 TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _positions(cfg, B, S, offset=0):
+    """(B, S) int32 positions, as (3, B, S) identical rows for M-RoPE
+    (text tokens: temporal, height and width positions agree)."""
+    pos = np.broadcast_to(np.arange(offset, offset + S, dtype=np.int32),
+                          (B, S))
+    if cfg.rope_type == "mrope":
+        pos = np.broadcast_to(pos[None], (3, B, S))
+    return pos.copy()
 
 
 def _port_cfg(cfg):
@@ -79,7 +92,7 @@ def test_forward_matches_reference(name, mode, reduced_params_cache):
     rng = np.random.default_rng(0)
     B, S = 2, 24
     tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    pos = _positions(cfg, B, S)
     want, want_aux, jc = j_forward(jp, cfg, J_CTX, jnp.asarray(tok),
                                    jnp.asarray(pos), mode)
     got, aux, tc = forward(tp, _port_cfg(cfg), CPU_CTX,
@@ -113,14 +126,17 @@ def test_paged_decode_matches_reference(name, reduced_params_cache):
     bt_b = np.broadcast_to(bt, (nb, B, 3)).copy()
     jc = {"0": {"self": {"k": jnp.asarray(kp), "v": jnp.asarray(vp),
                          "block_table": jnp.asarray(bt_b)}}}
+    dpos = clen[:, None]
+    if cfg.rope_type == "mrope":
+        dpos = np.broadcast_to(dpos[None], (3, B, 1)).copy()
     want, _, jn = j_forward(jp, cfg, J_CTX, jnp.asarray(tok),
-                            jnp.asarray(clen[:, None]), "decode", caches=jc,
+                            jnp.asarray(dpos), "decode", caches=jc,
                             cache_len=jnp.asarray(clen))
     tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
     tcache = {"0": {"self": {"k": tk, "v": tv,
                              "block_table": torch.from_numpy(bt_b)}}}
     got, _, tn = forward(tp, _port_cfg(cfg), CPU_CTX, torch.from_numpy(tok),
-                         torch.from_numpy(clen[:, None]), "decode",
+                         torch.from_numpy(dpos), "decode",
                          caches=tcache, cache_len=torch.from_numpy(clen))
     np.testing.assert_allclose(got[:2].numpy(), np.asarray(want)[:2], **TOL)
     assert tn["0"]["self"]["k"] is tk and tn["0"]["self"]["v"] is tv
@@ -161,9 +177,21 @@ def _generate(params, cfg, prompt, n):
     toks = [int(t) for t in prompt]
     for _ in range(n):
         t = torch.tensor(toks)[None]
-        pos = torch.arange(len(toks), dtype=torch.int32)[None]
+        pos = torch.from_numpy(_positions(cfg, 1, len(toks)))
         logits, _, _ = forward(params, cfg, CPU_CTX, t, pos, "train")
         toks.append(int(torch.argmax(logits[0, -1, :cfg.vocab_size])))
+    return toks[len(prompt):]
+
+
+def _generate_mrope_ref(params, cfg, prompt, n):
+    """conftest.generate_dense with (3, B, S) positions, which the
+    reference's M-RoPE requires."""
+    toks = list(prompt)
+    for _ in range(n):
+        logits, _, _ = j_forward(params, cfg, J_CTX, jnp.asarray(toks)[None],
+                                 jnp.asarray(_positions(cfg, 1, len(toks))),
+                                 "train")
+        toks.append(int(jnp.argmax(logits[0, -1, :cfg.vocab_size])))
     return toks[len(prompt):]
 
 
@@ -171,8 +199,10 @@ def _generate(params, cfg, prompt, n):
 def test_greedy_tokens_match_generate_dense(name, reduced_params_cache):
     cfg, jp, tp = _bridged(reduced_params_cache, name)
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 17)
+    ref = (_generate_mrope_ref if cfg.rope_type == "mrope"
+           else generate_dense)
     assert (_generate(tp, _port_cfg(cfg), prompt, 6)
-            == generate_dense(jp, cfg, prompt, 6))
+            == ref(jp, cfg, prompt, 6))
 
 
 def test_moe_capacity_drops_tokens(reduced_params_cache):
