@@ -10,9 +10,10 @@ Phases, each printing JSON lines:
                on the card, at the main paths' shapes (K1-K4 also at
                Qwen1.5-MoE's, ChatGLM3-6B's and Nemotron-4-15B's heads:
                GQA groups 1, 16 and 6; K1-K3 under Mixtral-8x22B's
-               4096-token window) and at edge cases, with kernel, plain
-               and library times (each timed case also one call at a
-               time with a cold L2), and K1 over one row of 131,072 keys;
+               4096-token window; K3/K4 at Whisper-medium's head_dim
+               64, non-causal) and at edge cases, with kernel, plain and
+               library times (each timed case also one call at a time
+               with a cold L2), and K1 over one row of 131,072 keys;
   3. serve   — Llama-3-8B (bf16, 32 layers), Mamba-2-1.3B (bf16, 48
                layers), Qwen1.5-MoE-A2.7B (bf16, 24 layers, 60 routed
                experts top-4), ChatGLM3-6B (bf16, 28 layers, 32 heads over
@@ -32,19 +33,29 @@ Phases, each printing JSON lines:
                a dense history (K3), the hand-off to dense decode caches,
                and 16 dense decode ticks (K4); the first tick is held to
                the plain path;
-  5. tokens  — fp32 at two layers (full widths): each served model's
+  5. whisper — Whisper-medium (bf16, 24 encoder + 24 decoder layers,
+               head_dim 64) at full width: four segments' 1500 encoder
+               frames and 224-token decoder prompts prefill as one CDSP
+               chunk (K3 72 times: encoder, decoder self and cross
+               attention), the cross KV is handed to dense decode caches,
+               then 32 dense ticks (K4 48 times each: self and cross);
+               the prefill and first tick are replayed with each K3/K4
+               call held to its plain version, and their logits held to
+               the plain path's;
+  6. tokens  — fp32 at two layers (full widths): each served model's
                engine gives identical greedy tokens on the kernel path and
-               the plain path, and Llama's dense path gives the paged
-               engine's tokens.
+               the plain path, Llama's dense path gives the paged
+               engine's tokens, and Whisper's path (two encoder and two
+               decoder layers) gives the plain path's.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-5 run.  ``--only profile`` adds a
+subset; with no arguments phases 1-6 run.  ``--only profile`` adds a
 torch.profiler breakdown of one full-width prefill chunk and one decode
-tick of each served model (kernel time by group and by aten op, on Qwen
-by MoE stage, and the card's idle share); it fails where a window shows no
-time for a kernel it must run.
+tick of each served model and of Whisper (kernel time by group and by
+aten op, on Qwen by MoE stage, and the card's idle share); it fails where
+a window shows no time for a kernel it must run.
 """
 
 from __future__ import annotations
@@ -85,7 +96,8 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
                            "flash_attention"},
          "serve_nemotron": {"paged_flash_decode", "paged_flash_prefill",
                             "flash_attention"},
-         "dense": {"flash_attention", "flash_decode"}}
+         "dense": {"flash_attention", "flash_decode"},
+         "whisper": {"flash_attention", "flash_decode"}}
 # the served attention models whose replay holds each K1-K3 call to its
 # plain version (attn_call_gate)
 ATTN_GATED = ("serve_moe", "serve_chatglm", "serve_nemotron")
@@ -340,9 +352,10 @@ def _pool_from_dense(k, page, gen):
     return pool, table.to(k.device)
 
 
-def _sdpa(q, k, v, mask):
+def _sdpa(q, k, v, mask, causal=True):
     """One library call over the same K/V: q (B, Sq, H, D), k/v
-    (B, Sk, KVH, D), mask (B, Sq, Sk) bool or None for plain causal."""
+    (B, Sk, KVH, D), mask (B, Sq, Sk) bool, or None for plain causal (no
+    mask at all with ``causal`` False)."""
     import torch
     import torch.nn.functional as F
     g = q.shape[2] // k.shape[2]
@@ -351,7 +364,7 @@ def _sdpa(q, k, v, mask):
     vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
     if mask is None:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
+                                                      is_causal=causal)
     m = mask[:, None]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m)
 
@@ -462,20 +475,31 @@ def phase_kernels(full_shapes: bool = True):
                 + B * H * Sq * 4 + (Sq + Sk) * 4
             bms, by = bound_ms(nbytes, 4 * B * H * D * pairs,
                                str(dtype).split(".")[-1])
+            kw = dict(causal=causal, window=window)
             times = _times(
-                lambda: flash_attention(q, k, v, qp, kp),
-                lambda: flash_attention_plain(q, k, v, qp, kp),
-                _sdpa(q, k, v, None), bms, by)
+                lambda: flash_attention(q, k, v, qp, kp, **kw),
+                lambda: flash_attention_plain(q, k, v, qp, kp, **kw),
+                _sdpa(q, k, v, None, causal), bms, by)
             times.update(_cold_times(
-                lambda: flash_attention(q, k, v, qp, kp)))
+                lambda: flash_attention(q, k, v, qp, kp, **kw)))
         record("flash_attention", case, dtype, errs, main, times, planted)
 
     # ---- K2: chunk queries against history pages
+    def nan_tails(pools, table, lengths, page):
+        """NaN in each row's slots at and past its length within its
+        table's pages (inside the last page's key tile), where
+        ``_pool_from_dense`` leaves zeros."""
+        f = torch.arange(table.shape[1] * page, device=dev)
+        r, f = torch.nonzero(f[None] >= lengths[:, None], as_tuple=True)
+        for pool in pools:
+            pool[table[r, f // page].long(), f % page] = float("nan")
+
     def k2(case, B, Sq, hist, H, KVH, D, page, dtype, window=None,
-           main=False, fault=False, timed=False):
+           main=False, fault=False, timed=False, nan_tail=False):
         """``fault`` (implied by ``main`` and ``timed``): the check must
         also reject a planted fault (V one key off) at this case's shape;
-        ``timed`` (implied by ``main``): times."""
+        ``timed`` (implied by ``main``): times; ``nan_tail``: NaN in the
+        slots past each row's history."""
         timed = timed or main
         q = randn(B, Sq, H, D, dtype=dtype)
         S_h = max(hist) if max(hist) > 0 else page
@@ -486,6 +510,8 @@ def phase_kernels(full_shapes: bool = True):
         g2.manual_seed(1)
         vpool, _ = _pool_from_dense(vd, page, g2)
         hl = torch.tensor(hist, dtype=torch.int32, device=dev)
+        if nan_tail:
+            nan_tails((kpool, vpool), table, hl, page)
         qp = (hl[:, None] + torch.arange(Sq, dtype=torch.int32,
                                          device=dev)[None])
         o, l = paged_flash_prefill(q, kpool, vpool, table, hl, qp,
@@ -527,9 +553,12 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K1: paged decode with the fused append
     def k1(case, lengths, H, KVH, D, page, dtype, window=None, append=True,
-           pos_pad_cols=0, pad_rows=(), main=False, timed=False):
+           pos_pad_cols=0, pad_rows=(), main=False, timed=False,
+           nan_tail=False):
         """``main``: the kernel table's row; ``timed`` (implied by
-        ``main``): times (warm and cold L2) and a planted fault."""
+        ``main``): times (warm and cold L2) and a planted fault;
+        ``nan_tail``: NaN in the slots at and past each row's length (the
+        append slot included, which the call writes first)."""
         timed = timed or main
         B = len(lengths)
         S = max(max(lengths) + 1, 1)
@@ -558,6 +587,8 @@ def phase_kernels(full_shapes: bool = True):
                  torch.full((B, pos_pad_cols), POS_PAD, dtype=torch.int32,
                             device=dev)], 1)
         ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        if nan_tail:
+            nan_tails((kpool, vpool), table[:, :npg], ln, page)
         kw = dict(window=window, page_pos=page_pos)
         if append:
             rows_ = torch.arange(B, device=dev)
@@ -756,6 +787,23 @@ def phase_kernels(full_shapes: bool = True):
         k1("mixtral_window4096", [4500, 6144, 100, 8000], 48, 8, 128, 64,
            bf, window=4096)
         # Mamba-2-1.3B: a 3072-token CDSP chunk with the state handed in
+        # Whisper-medium (H 16 = KVH 16, D 64, non-causal): K3 over the
+        # encoder's 1500 frames for four segments and the decoder's 224
+        # prompt tokens over them (cross attention); K4 the cross-decode
+        # tick, four rows of 1500 keys
+        k3("whisper_encoder", 4, 1500, 1500, 16, 16, 64, bf, causal=False,
+           timed=True)
+        k3("whisper_cross", 4, 224, 1500, 16, 16, 64, bf, causal=False,
+           timed=True)
+        k4("whisper_cross_decode", [1500] * 4, 1500, 16, 16, 64, bf,
+           timed=True)
+        # K1 and K2 at Whisper's heads (no path of the smoke runs them at
+        # head_dim 64): the smoke's decode batch in 64-token pages, and a
+        # 3072-token chunk over 3072 history tokens
+        k1("d64_whisper_heads", [512, 2048, 4096, 6144], 16, 16, 64, 64, bf,
+           timed=True)
+        k2("d64_whisper_heads", 1, 3072, [3072], 16, 16, 64, 64, bf,
+           timed=True)
         k5("main", 1, 3072, 64, 64, 1, 128, 256, bf, main=True)
         k5("ragged_S_via_ops", 1, 1000, 64, 64, 1, 128, 256, bf,
            via_ops=True)
@@ -812,6 +860,26 @@ def phase_kernels(full_shapes: bool = True):
            perm="across")
         k2("g6_d32_page16_ragged", 2, 37, [45, 3], 12, 2, 32, 16, dt)
         k2("g16_d128_page8_masked_rows", 2, 33, [96, 0], 32, 2, 128, 8, dt)
+        # head_dim 64 (Whisper): ragged and non-causal K3, NaN in unused
+        # pool slots for K1/K2 (K2's pages 16 and 64 by TMA, 48 by
+        # cp.async), K4 over a ragged S
+        k3("d64_noncausal_ragged_g1", 2, 150, 333, 4, 4, 64, dt,
+           causal=False)
+        k3("d64_causal_offset_g4", 1, 70, 130, 8, 2, 64, dt, offset=60)
+        k3("d64_sq17_masked_rows_g2", 1, 17, 30, 4, 2, 64, dt, offset=-5)
+        k2("d64_page16_nan_tail_g1", 2, 37, [45, 3], 4, 4, 64, 16, dt,
+           nan_tail=True)
+        k2("d64_page64_nan_tail_g4", 1, 50, [200], 8, 2, 64, 64, dt,
+           nan_tail=True)
+        k2("d64_page48_window_g1", 1, 33, [150], 4, 4, 64, 48, dt,
+           window=70, nan_tail=True)
+        k1("d64_page16_g1_nan_tail_padded", [300, 0, 45], 4, 4, 64, 16, dt,
+           pad_rows=(1,), nan_tail=True)
+        k1("d64_page64_g16_window", [700, 3], 32, 2, 64, 64, dt, window=100,
+           nan_tail=True)
+        k4("d64_ragged_S_g1_zero_row", [77, 0, 30], 77, 4, 4, 64, dt)
+        k4("d64_window_offset_g6", [300, 129], 300, 12, 2, 64, dt,
+           window=50, kv_offset=20)
         k5("S_below_chunk_no_h0", 1, 100, 8, 64, 1, 128, 256, dt,
            h0=False)
         k5("groups4_ragged", 2, 300, 8, 64, 4, 128, 128, dt, via_ops=True)
@@ -984,30 +1052,56 @@ def ssd_call_gate(run, n_layers: int):
     return out, report
 
 
-def attn_call_gate(run, n_layers: int):
-    """Run ``run()``, a kernel-path replay of a bf16 attention model (two
-    chunks, then a decode tick), with each K1-K3 call also held to its
-    plain version on the same inputs (that layer's activations, the
+def paged_gate_plan(n_layers: int):
+    """(calls, keep) of ``attn_call_gate`` for a served model's replay (two
+    chunks, then a decode tick): K3 runs once a layer in each chunk (the
+    second chunk's calls follow the first's), K2 in the second chunk, K1
+    in the tick; the calls kept for planted faults are those of the first
+    and the last layer."""
+    return ({"flash_attention": 2 * n_layers, "paged_flash_prefill": n_layers,
+             "paged_flash_decode": n_layers},
+            {"flash_attention": (n_layers, 2 * n_layers - 1),
+             "paged_flash_prefill": (0, n_layers - 1),
+             "paged_flash_decode": (0, n_layers - 1)})
+
+
+def whisper_gate_plan(n_enc: int, n_layers: int):
+    """(calls, keep) of ``attn_call_gate`` for an encoder-decoder's
+    prefill and first decode tick: K3 runs once a layer in the encoder,
+    then twice a decoder layer (self attention, then cross attention); K4
+    twice a decoder layer in the tick (self, then cross).  Kept: the
+    encoder's first and last layer, the first decoder layer's self and
+    cross calls and the last layer's cross call, and the tick's first
+    self and cross calls and last cross call."""
+    return ({"flash_attention": n_enc + 2 * n_layers,
+             "flash_decode": 2 * n_layers},
+            {"flash_attention": (0, n_enc - 1, n_enc, n_enc + 1,
+                                 n_enc + 2 * n_layers - 1),
+             "flash_decode": (0, 1, 2 * n_layers - 1)})
+
+
+def attn_call_gate(run, want_calls: dict, keep: dict):
+    """Run ``run()``, a kernel-path replay of a bf16 attention model, with
+    each call of the kernels named in ``want_calls`` (K1-K4) also held to
+    its plain version on the same inputs (that layer's activations, the
     pools as the call found them) under ``KERNEL_TOL``'s bf16 check; the
-    kernels' outputs go on unchanged.  The second chunk's K2 and K3 calls
-    and the tick's K1 call of the first and the last layer keep their
-    inputs, and the check must reject V one key off planted there.  Returns
+    kernels' outputs go on unchanged.  ``want_calls`` says how many calls
+    of each kernel the replay makes; the calls whose indices ``keep``
+    lists keep their inputs, and the check must reject V one key off
+    planted there (``paged_gate_plan``, ``whisper_gate_plan``).  Returns
     (``run()``'s result, a report whose ``ok`` says whether every call
     passed and every planted fault was rejected)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         flash_attention_plain, paged_flash_prefill_plain)
-    from repro_torch.kernels.flash_decode import paged_flash_decode_plain
+    from repro_torch.kernels.flash_decode import (flash_decode_plain,
+                                                  paged_flash_decode_plain)
     plains = {"flash_attention": flash_attention_plain,
               "paged_flash_prefill": paged_flash_prefill_plain,
-              "paged_flash_decode": paged_flash_decode_plain}
+              "paged_flash_decode": paged_flash_decode_plain,
+              "flash_decode": flash_decode_plain}
+    plains = {n: plains[n] for n in want_calls}
     kernels = {n: getattr(ops, n) for n in plains}
-    # call index of the first and the last layer: K3 runs once a layer in
-    # each chunk (the second chunk's calls follow the first's), K2 in the
-    # second chunk, K1 in the tick
-    keep = {"flash_attention": (n_layers, 2 * n_layers - 1),
-            "paged_flash_prefill": (0, n_layers - 1),
-            "paged_flash_decode": (0, n_layers - 1)}
     calls = {n: [] for n in plains}
     kept = {}
     tol = KERNEL_TOL["bfloat16"]
@@ -1054,11 +1148,11 @@ def attn_call_gate(run, n_layers: int):
                                                  tol["atol"], tol["rtol"])
     report["planted_v_one_key_off"] = planted
     report["ok"] = (
-        [len(calls[n]) for n in plains] == [2 * n_layers, n_layers,
-                                            n_layers]
+        {n: len(rs) for n, rs in calls.items()} == want_calls
         and all(r[k] <= 1.0 for rs in calls.values() for r in rs
                 for k in r)
-        and len(planted) == 6 and all(v > 1.0 for v in planted.values()))
+        and len(planted) == sum(len(v) for v in keep.values())
+        and all(v > 1.0 for v in planted.values()))
     return out, report
 
 
@@ -1157,7 +1251,8 @@ LOGIT_TOL = {"llama3-8b": {"max_abs_err": 0.25, "cos": 0.999},
              "mamba2-1.3b": {"max_abs_err": 0.25, "cos": 0.998},
              "qwen2-moe-a2.7b": {"max_abs_err": 0.25, "cos": 0.98},
              "chatglm3-6b": {"max_abs_err": 0.25, "cos": 0.999},
-             "nemotron-4-15b": {"max_abs_err": 0.25, "cos": 0.999}}
+             "nemotron-4-15b": {"max_abs_err": 0.25, "cos": 0.999},
+             "whisper-medium": {"max_abs_err": 0.25, "cos": 0.999}}
 
 
 def _logits_vs_plain(phase, names, got, want, tol):
@@ -1253,7 +1348,8 @@ def _serve_path(arch: str, path: str) -> dict:
         if path == "serve_mamba":
             got, gate = ssd_call_gate(replay, cfg.n_layers)
         elif path in ATTN_GATED:
-            got, gate = attn_call_gate(replay, cfg.n_layers)
+            got, gate = attn_call_gate(replay, *paged_gate_plan(
+                cfg.n_layers))
         else:
             got = replay()
     if path == "serve_mamba":
@@ -1299,44 +1395,56 @@ def phase_serve() -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
-def _dense_run(cfg, params, ctx, prompt, chunks, ticks, force=None):
-    """CDSP chunked prefill over a dense history, the hand-off to dense
-    decode caches, then ``ticks`` dense decode ticks, greedy (or on the
-    tokens ``force``).  Returns (logits rows: prefill then each tick,
-    tokens, prefill device ms, tick device ms)."""
+def _dense_run(cfg, params, ctx, prompts, chunks, ticks, force=None,
+               frames=None):
+    """CDSP chunked prefill over a dense history (an encoder-decoder's
+    with its ``frames``), the hand-off to dense decode caches, then
+    ``ticks`` dense decode ticks, greedy (or on the tokens ``force``).
+    ``prompts``: one prompt, or a batch of prompts of one length.  Returns
+    a dict: ``rows`` (logits (B, V) fp32: prefill then each tick),
+    ``tokens`` (a list of B tokens per step), ``prefill_ms`` and
+    ``tick_ms`` (CUDA events around the prefill with its hand-off, and
+    around each tick), ``prefill_launches`` (the kernels the prefill and
+    hand-off launched)."""
+    import numpy as np
     import torch
     from repro_torch.core.cdsp import (chunked_prefill,
                                        history_to_decode_caches)
     from repro_torch.models.transformer import forward
     dev = ctx.device
-    L = len(prompt)
-    toks = torch.as_tensor(prompt, device=dev)[None]
-    pos = torch.arange(L, dtype=torch.int32, device=dev)[None]
+    toks = torch.as_tensor(np.atleast_2d(prompts), device=dev)
+    B, L = toks.shape
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None].expand(B, L)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    before = _read_counts()
     ev[0].record()
-    logits, hist = chunked_prefill(params, cfg, ctx, toks, pos, chunks)
+    logits, hist = chunked_prefill(params, cfg, ctx, toks, pos, chunks,
+                                   encoder_frames=frames)
     caches, clen = history_to_decode_caches(cfg, hist, max_seq=L + ticks)
     ev[1].record()
+    prefill_launches = {k: v - before[k] for k, v in _read_counts().items()}
     del hist
-    rows = [logits[0, 0, :cfg.vocab_size].float()]
-    out = [int(torch.argmax(rows[0])) if force is None else force[0]]
+    rows = [logits[:, 0, :cfg.vocab_size].float()]
+    out = [rows[0].argmax(-1).tolist() if force is None else force[0]]
     tick_ms = []
     for i in range(ticks):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         lg, _, caches = forward(params, cfg, ctx,
-                                torch.tensor([[out[-1]]], device=dev),
+                                torch.tensor(out[-1], device=dev)[:, None],
                                 clen[:, None], "decode", caches=caches,
                                 cache_len=clen)
         b.record()
         clen = clen + 1
-        rows.append(lg[0, 0, :cfg.vocab_size].float())
-        out.append(int(torch.argmax(rows[-1])) if force is None
+        rows.append(lg[:, 0, :cfg.vocab_size].float())
+        out.append(rows[-1].argmax(-1).tolist() if force is None
                    else force[i + 1])
         tick_ms.append((a, b))
     torch.cuda.synchronize()
-    return (rows, out, ev[0].elapsed_time(ev[1]),
-            [a.elapsed_time(b) for a, b in tick_ms])
+    return {"rows": rows, "tokens": out,
+            "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "tick_ms": [a.elapsed_time(b) for a, b in tick_ms],
+            "prefill_launches": prefill_launches}
 
 
 def phase_dense() -> dict:
@@ -1359,11 +1467,12 @@ def phase_dense() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    rows, toks, pre_ms, tick_ms = _dense_run(cfg, params, ctx, prompt,
-                                             chunks, ticks)
+    run = _dense_run(cfg, params, ctx, prompt, chunks, ticks)
     counts = _read_counts()
+    tick_ms = run["tick_ms"]
+    toks = [t[0] for t in run["tokens"]]
     emit(phase="dense", model=cfg.name, chunks=chunks, ticks=ticks,
-         launches=counts, prefill_device_ms=pre_ms,
+         launches=counts, prefill_device_ms=run["prefill_ms"],
          tick_device_ms={"mean": sum(tick_ms) / len(tick_ms),
                          "min": min(tick_ms), "max": max(tick_ms)},
          peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
@@ -1372,13 +1481,179 @@ def phase_dense() -> dict:
     check(counts["flash_decode"] == cfg.n_layers * ticks,
           f"dense: K4 launched {counts['flash_decode']} times, want "
           f"{cfg.n_layers * ticks}")
-    want, _, _, _ = _dense_run(cfg, params, ctx.with_(impl="ref"), prompt,
-                               chunks, 1, force=toks[:2])
-    _logits_vs_plain("dense", ("prefill_chunk2", "decode_tick1"), rows[:2],
-                     want, LOGIT_TOL["llama3-8b"])
+    want = _dense_run(cfg, params, ctx.with_(impl="ref"), prompt, chunks, 1,
+                      force=run["tokens"][:2])
+    _logits_vs_plain("dense", ("prefill_chunk2", "decode_tick1"),
+                     [r[0] for r in run["rows"][:2]],
+                     [r[0] for r in want["rows"]], LOGIT_TOL["llama3-8b"])
     del params
     _free()
     return counts
+
+
+# ---------------------------------------------------------- phase whisper
+# Whisper-medium's smoke: four 30-s audio segments (1500 encoder frames
+# each, from the stubbed frontend), a 224-token previous-text prompt each
+# (half the decoder's 448-token context), then 32 greedy dense decode ticks
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_TICKS = 4, 224, 32
+
+
+def _whisper_inputs(cfg, seed: int, device):
+    """Seeded encoder frames (B, cross_kv_len, d_model) fp32 on ``device``
+    and B decoder prompts of ``WHISPER_PROMPT`` tokens."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, cfg.cross_kv_len, cfg.d_model)).astype(np.float32))
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (WHISPER_BATCH, WHISPER_PROMPT)).astype(np.int32)
+    return frames.to(device), prompts
+
+
+def _whisper_params(cfg, seed: int, device) -> dict:
+    """Seeded Whisper weights: ``init_params`` (the reference's rules),
+    then the decoder's token table drawn at std 1 and the cross-attention
+    biases set to zero.  Under the reference's rules the table's std is
+    1/sqrt(vocab), which puts the decoder's input some 200x below its
+    attention outputs, and the ``x_b*`` biases are drawn at std
+    1/sqrt(n_layers) (their names do not start with "b"): the two-layer
+    fp32 model of the tokens phase then greedy-decodes one and the same
+    token for every request and tick, and its token check would compare
+    constants.  (At 24 layers the greedy tokens barely depend on the
+    input under either rule: 3 distinct tokens over the whisper phase's
+    4 requests x 33 steps, on the card.)"""
+    import torch
+    from repro_torch.models.params import init_params
+    params = init_params(cfg, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    params["embed"].normal_(0.0, 1.0, generator=gen)
+    for name in ("x_bq", "x_bk", "x_bv"):
+        params["blocks"]["0"][name].zero_()
+    return params
+
+
+def phase_whisper() -> dict:
+    """Whisper-medium at published widths (bf16, 24 encoder and 24 decoder
+    layers, seeded weights): the decoder prompts prefill as one CDSP chunk
+    with the encoder frames (K3: the encoder's self attention, then each
+    decoder layer's self and cross attention), the hand-off carries the
+    cross KV into the dense decode caches, and each tick runs K4 twice a
+    layer (self attention over the dense cache, cross attention over the
+    1500 frames' KV).  The prefill and first tick are replayed with every
+    K3/K4 call held to its plain version, and their logits held to the
+    plain path's."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import count_params
+    from repro_torch.models.sharding import make_context
+    cfg = get_config("whisper-medium")
+    ctx = make_context("cuda")
+    params = _whisper_params(cfg, 0, ctx.device)
+    frames, prompts = _whisper_inputs(cfg, 0, ctx.device)
+    L, ticks = WHISPER_PROMPT, WHISPER_TICKS
+    emit(phase="whisper", model=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+         d_model=cfg.d_model, head_dim=cfg.head_dim_,
+         params=count_params(params), batch=WHISPER_BATCH,
+         encoder_frames=cfg.cross_kv_len, prompt=L, ticks=ticks)
+    # one untimed prefill and tick first: the first call of each of the
+    # run's GEMM shapes loads its kernel (on an H100 a cold first prefill
+    # read 332 ms between events, a warm one 64-82 ms)
+    _dense_run(cfg, params, ctx, prompts, [L], 1, frames=frames)
+    _free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    run = _dense_run(cfg, params, ctx, prompts, [L], ticks, frames=frames)
+    counts = _read_counts()
+    pre = run["prefill_launches"]
+    per_tick = {k: (counts[k] - pre[k]) / ticks for k in counts}
+    tick_ms = run["tick_ms"]
+    emit(phase="whisper", model=cfg.name, launches=counts,
+         prefill_launches=pre, launches_per_tick=per_tick,
+         prefill_device_ms=run["prefill_ms"],
+         tick_device_ms={"mean": sum(tick_ms) / len(tick_ms),
+                         "min": min(tick_ms), "max": max(tick_ms)},
+         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
+         clock="cuda events around each call")
+    _check_launches(counts, "whisper")
+    want_pre = cfg.n_encoder_layers + 2 * cfg.n_layers
+    check(pre == {**{k: 0 for k in pre}, "flash_attention": want_pre},
+          f"whisper: prefill launched {pre}, want K3 x {want_pre} only")
+    check(per_tick == {**{k: 0 for k in per_tick},
+                       "flash_decode": 2 * cfg.n_layers},
+          f"whisper: a tick launched {per_tick}, want K4 x "
+          f"{2 * cfg.n_layers} only")
+    check(all(0 <= t < cfg.vocab_size for step in run["tokens"]
+              for t in step), "whisper: a token outside the vocabulary")
+    emit(phase="whisper", model=cfg.name, distinct_tokens=len(
+        {t for step in run["tokens"] for t in step}),
+         tokens_by_request=[[step[b] for step in run["tokens"]]
+                            for b in range(WHISPER_BATCH)])
+    check(all(bool(torch.isfinite(r).all()) for r in run["rows"]),
+          "whisper: non-finite logits")
+
+    # the prefill and the first tick again, each K3/K4 call held to its
+    # plain version on its own inputs, then on the plain path
+    force = run["tokens"][:2]
+
+    def replay():
+        return _dense_run(cfg, params, ctx, prompts, [L], 1, force=force,
+                          frames=frames)
+
+    got, gate = attn_call_gate(replay, *whisper_gate_plan(
+        cfg.n_encoder_layers, cfg.n_layers))
+    emit(phase="whisper", model=cfg.name, attention_calls=gate,
+         tol=KERNEL_TOL["bfloat16"])
+    check(gate["ok"], f"{cfg.name}: a K3/K4 call of the replay disagrees "
+          f"with its plain version, or a planted fault passed: {gate}")
+    check(got["tokens"][0] == run["tokens"][0],
+          "whisper: the replayed prefill disagrees with the run's tokens")
+    want = _dense_run(cfg, params, ctx.with_(impl="ref"), prompts, [L], 1,
+                      force=force, frames=frames)
+    names = [f"{step}_req{b}" for step in ("prefill", "decode_tick1")
+             for b in range(WHISPER_BATCH)]
+    _logits_vs_plain("whisper", names,
+                     [r for rows in run["rows"][:2] for r in rows],
+                     [r for rows in want["rows"] for r in rows],
+                     LOGIT_TOL[cfg.name])
+    del params, got, want, run
+    _free()
+    return counts
+
+
+def _tokens_whisper(seed: int, ticks: int = 8) -> None:
+    """fp32 Whisper-medium at two encoder and two decoder layers (full
+    widths): the kernel path and the plain path give identical greedy
+    tokens over the prefill and ``ticks`` ticks."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.sharding import make_context
+    cfg = dataclasses.replace(get_config("whisper-medium"), n_layers=2,
+                              n_encoder_layers=2, dtype="float32")
+    ctx = make_context("cuda")
+    params = _whisper_params(cfg, seed, ctx.device)
+    frames, prompts = _whisper_inputs(cfg, seed, ctx.device)
+    outs = {}
+    for impl in (None, "ref"):
+        _reset_counts()
+        toks = _dense_run(cfg, params, ctx.with_(impl=impl), prompts,
+                          [prompts.shape[1]], ticks, frames=frames)["tokens"]
+        counts = _read_counts()
+        outs[impl or "cuda"] = toks
+        emit(phase="tokens", model=cfg.name, impl=impl or "cuda",
+             launches=counts, outputs=toks)
+        if impl is None:
+            _check_launches(counts, "whisper")
+        else:
+            check(not any(counts.values()),
+                  f"{cfg.name}: plain path launched kernels: {counts}")
+    same = outs["cuda"] == outs["ref"]
+    emit(phase="tokens", model=cfg.name, identical=same)
+    check(same, f"{cfg.name}: fp32 greedy tokens differ between kernel and "
+          "plain paths")
+    del params
+    _free()
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1429,8 +1704,9 @@ def phase_tokens():
     rid = 2
     L = len(prompts[rid])
     _reset_counts()
-    _, dense, _, _ = _dense_run(cfg, params, ctx, prompts[rid],
-                                [L // 2, L - L // 2], len(outs[rid]) - 1)
+    dense = [t[0] for t in _dense_run(cfg, params, ctx, prompts[rid],
+                                      [L // 2, L - L // 2],
+                                      len(outs[rid]) - 1)["tokens"]]
     counts = _read_counts()
     _check_launches(counts, "dense")
     emit(phase="tokens", model=cfg.name, path="dense", launches=counts,
@@ -1447,6 +1723,7 @@ def phase_tokens():
                    (300, 1000, 2500, 4000), 8)
     _tokens_engine("nemotron-4-15b", "serve_nemotron", 5,
                    (300, 1000, 2500, 4000), 8)
+    _tokens_whisper(6)
 
 
 # ---------------------------------------------------------- profile (opt-in)
@@ -1455,9 +1732,10 @@ def phase_tokens():
 _ATTN_SYMBOL = re.compile(r"attn_(tc|simt)_kernel<\d+, (true|false)\b")
 
 
-def _kernel_groups(prof) -> dict:
+def _kernel_groups(prof, decode: str = "K1 paged_flash_decode") -> dict:
     """Device time (ms) by kernel group from a torch.profiler run, and the
-    largest ungrouped kernels by name."""
+    largest ungrouped kernels by name.  The decode kernels (split and
+    merge) are K1's and K4's alike: ``decode`` names their group."""
     groups, others = {}, {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -1470,7 +1748,7 @@ def _kernel_groups(prof) -> dict:
         attn = _ATTN_SYMBOL.search(name)
         g = (("K2 paged_flash_prefill" if attn.group(2) == "true"
               else "K3 flash_attention") if attn else
-             "K1 paged_flash_decode" if "decode_" in name else
+             decode if "decode_" in name else
              "K5 ssd_scan" if "ssd_" in name else
              "gemm" if any(t in name.lower() for t in
                            ("gemm", "nvjet", "sm90_", "cutlass"))
@@ -1539,7 +1817,8 @@ def _range_ms(prof) -> dict:
     return out
 
 
-def _profile(model: str, windows) -> None:
+def _profile(model: str, windows,
+             decode: str = "K1 paged_flash_decode") -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     for name, fn, reps, need in windows:
@@ -1557,7 +1836,7 @@ def _profile(model: str, windows) -> None:
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
-        groups, others = _kernel_groups(prof)
+        groups, others = _kernel_groups(prof, decode)
         groups = {k: v / reps for k, v in groups.items()}
         ops = _device_ms_by_op(prof)
         stages = {k: v / reps for k, v in _range_ms(prof).items()}
@@ -1666,15 +1945,55 @@ def phase_profile():
         _profile_attention("qwen2-moe-a2.7b", lens, page)
     _profile_attention("chatglm3-6b", lens, page)
     _profile_attention("nemotron-4-15b", lens, page)
+    _profile_whisper()
+
+
+def _profile_whisper() -> None:
+    """Whisper-medium's prefill of the smoke batch (the encoder over four
+    segments' 1500 frames, then the decoder's 224-token prompts with cross
+    attention, and the hand-off) and one dense decode tick of the four
+    rows (K4 twice a layer)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.cdsp import (chunked_prefill,
+                                       history_to_decode_caches)
+    from repro_torch.models.sharding import make_context
+    from repro_torch.models.transformer import forward
+    ctx = make_context("cuda")
+    dev = ctx.device
+    cfg = get_config("whisper-medium")
+    params = _whisper_params(cfg, 0, dev)
+    frames, prompts = _whisper_inputs(cfg, 0, ctx.device)
+    B, L = prompts.shape
+    toks = torch.as_tensor(prompts, device=dev)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)[None].expand(B, L)
+
+    def prefill():
+        _, hist = chunked_prefill(params, cfg, ctx, toks, pos, [L],
+                                  encoder_frames=frames)
+        return history_to_decode_caches(cfg, hist, L + WHISPER_TICKS)
+
+    caches, clen = prefill()
+    tick_toks = torch.randint(0, cfg.vocab_size, (B, 1), device=dev)
+    _profile(cfg.name, (
+        ("prefill_b4_frames1500_prompt224", prefill, 2,
+         ("K3 flash_attention",)),
+        ("decode_tick_b4",
+         lambda: forward(params, cfg, ctx, tick_toks, clen[:, None],
+                         "decode", caches=caches, cache_len=clen), 8,
+         ("K4 flash_decode",))), decode="K4 flash_decode")
+    del params, caches
+    _free()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
-                    choices=["device", "kernels", "serve", "dense", "tokens",
-                             "profile"])
+                    choices=["device", "kernels", "serve", "dense",
+                             "whisper", "tokens", "profile"])
     args = ap.parse_args(argv)
-    phases = args.only or ["device", "kernels", "serve", "dense", "tokens"]
+    phases = args.only or ["device", "kernels", "serve", "dense", "whisper",
+                           "tokens"]
 
     import torch
     if not torch.cuda.is_available():
@@ -1690,6 +2009,8 @@ def main(argv=None) -> int:
     by_path = phase_serve() if "serve" in phases else {}
     if "dense" in phases:
         by_path["dense"] = phase_dense()
+    if "whisper" in phases:
+        by_path["whisper"] = phase_whisper()
     if "tokens" in phases:
         phase_tokens()
     if "profile" in phases:

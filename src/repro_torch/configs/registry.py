@@ -17,6 +17,7 @@ _MODULES = {
     "llama3-70b": "llama3_70b",
     "qwen2-vl-72b": "qwen2_vl_72b",
     "mixtral-8x22b": "mixtral_8x22b",
+    "whisper-medium": "whisper_medium",
 }
 NAMES = tuple(_MODULES)
 

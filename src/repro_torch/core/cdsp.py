@@ -12,8 +12,10 @@ of the pages through ``pages_history_view`` and the engine scatters the
 chunk's own KV into pages afterwards.  The dense ``prefill_chunk`` /
 ``_append_history`` path stays as the library oracle.
 
-Only the single-device path is ported: cross attention and sharded pools
-belong to later slices.
+An encoder-decoder (Whisper) prefills its decoder prompt as one chunk
+with the encoder frames (reference cdsp.py:225-231); each layer's cross KV
+rides in the history as ``"cross"`` and on into the decode caches.  Only
+the single-device path is ported: sharded pools belong to a later slice.
 """
 
 from __future__ import annotations
@@ -30,36 +32,42 @@ from repro_torch.models.transformer import forward
 def _append_history(cfg: ModelConfig, history: Optional[dict],
                     new_caches: dict, positions: torch.Tensor) -> dict:
     """Fold a chunk's produced caches into the running dense history:
-    attention KV is concatenated, SSD state and conv window replaced."""
+    attention KV is concatenated, SSD state and conv window replaced, the
+    cross KV carried."""
     pos2d = positions[0] if positions.dim() == 3 else positions
     out = {}
     for i, spec in enumerate(cfg.pattern):
         key = str(i)
         nc = new_caches[key]["self"]
         if spec.mixer != "attn":
-            out[key] = {"self": nc}
-            continue
-        prev = None if history is None else history.get(key, {}).get("self")
-        nb, B_, L = nc["k"].shape[:3]
-        pos_b = pos2d[None].expand(nb, B_, L)
-        if prev is None:
-            ent = {"k": nc["k"], "v": nc["v"], "pos": pos_b}
+            ent = nc
         else:
-            ent = {"k": torch.cat([prev["k"], nc["k"]], dim=2),
-                   "v": torch.cat([prev["v"], nc["v"]], dim=2),
-                   "pos": torch.cat([prev["pos"], pos_b], dim=2)}
+            prev = (None if history is None
+                    else history.get(key, {}).get("self"))
+            nb, B_, L = nc["k"].shape[:3]
+            pos_b = pos2d[None].expand(nb, B_, L)
+            if prev is None:
+                ent = {"k": nc["k"], "v": nc["v"], "pos": pos_b}
+            else:
+                ent = {"k": torch.cat([prev["k"], nc["k"]], dim=2),
+                       "v": torch.cat([prev["v"], nc["v"]], dim=2),
+                       "pos": torch.cat([prev["pos"], pos_b], dim=2)}
         out[key] = {"self": ent}
+        if "cross" in new_caches[key]:
+            out[key]["cross"] = new_caches[key]["cross"]
     return out
 
 
 def prefill_chunk(params: dict, cfg: ModelConfig, ctx: ExecContext,
                   tokens: torch.Tensor, positions: torch.Tensor,
-                  history: Optional[dict] = None
+                  history: Optional[dict] = None,
+                  encoder_frames: Optional[torch.Tensor] = None,
                   ) -> Tuple[torch.Tensor, dict]:
     """Run ONE CDSP chunk against the running dense history.  Returns
     (next-token logits (B, 1, V), updated history)."""
     logits, _, new_caches = forward(params, cfg, ctx, tokens, positions,
-                                    "prefill", history=history)
+                                    "prefill", history=history,
+                                    encoder_frames=encoder_frames)
     return logits, _append_history(cfg, history, new_caches, positions)
 
 
@@ -68,9 +76,10 @@ def aux_history_from_caches(cfg: ModelConfig, prev_aux: Optional[dict],
     """Fold one chunk's non-attention state into the running aux history.
 
     Attention KV lives in pages; only O(1)-in-sequence state rides here:
-    a Mamba layer's SSD state and conv window, replaced by each chunk's
-    (and cross KV, which no ported model has).  A model with attention
-    layers only has none, and gets None, as in the reference."""
+    a Mamba layer's SSD state and conv window, replaced by each chunk's,
+    and an encoder-decoder's cross KV, computed once and carried.  A
+    decoder with attention layers only has none, and gets None, as in the
+    reference."""
     out: dict = {}
     for i, spec in enumerate(cfg.pattern):
         key = str(i)
@@ -138,6 +147,7 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, ctx: ExecContext,
                         tokens: torch.Tensor, positions: torch.Tensor,
                         pools: dict, block_table, hist_len: int,
                         aux_history: Optional[dict] = None,
+                        encoder_frames: Optional[torch.Tensor] = None,
                         ) -> Tuple[torch.Tensor, dict, Optional[dict]]:
     """Run ONE CDSP chunk whose cross-chunk history lives in KV pages.
     Returns (next-token logits (B, 1, V), the chunk's new caches —
@@ -148,26 +158,34 @@ def prefill_chunk_paged(params: dict, cfg: ModelConfig, ctx: ExecContext,
                                      aux_history,
                                      active_shards=ctx.active_pool_shards)
     logits, _, new_caches = forward(params, cfg, ctx, tokens, positions,
-                                    "prefill", history=history)
+                                    "prefill", history=history,
+                                    encoder_frames=encoder_frames)
     return logits, new_caches, aux_history_from_caches(cfg, aux_history,
                                                        new_caches)
 
 
 def chunked_prefill(params: dict, cfg: ModelConfig, ctx: ExecContext,
                     tokens: torch.Tensor, positions: torch.Tensor,
-                    chunk_lens: List[int]) -> Tuple[torch.Tensor, dict]:
+                    chunk_lens: List[int],
+                    encoder_frames: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, dict]:
     """Run CDSP prefill over ``chunk_lens`` (sum == S).  Returns
     (next-token logits (B, 1, V), dense history with the full per-layer KV
-    in chunk-concatenation storage order)."""
+    in chunk-concatenation storage order).  ``encoder_frames`` go to the
+    first chunk; an encoder-decoder's decoder prompt is one chunk."""
     S = tokens.shape[-1]
     assert sum(chunk_lens) == S, (chunk_lens, S)
+    if cfg.encoder_decoder and len(chunk_lens) != 1:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's decoder prompt "
+                         f"prefills as one chunk, got {chunk_lens}")
     history: Optional[dict] = None
     logits = None
     off = 0
-    for L in chunk_lens:
+    for n, L in enumerate(chunk_lens):
         logits, history = prefill_chunk(
             params, cfg, ctx, tokens[:, off:off + L],
-            positions[..., off:off + L], history)
+            positions[..., off:off + L], history,
+            encoder_frames=encoder_frames if n == 0 else None)
         off += L
     return logits, history
 
@@ -176,14 +194,17 @@ def history_to_decode_caches(cfg: ModelConfig, history: dict,
                              max_seq: int) -> Tuple[dict, torch.Tensor]:
     """Dense history -> dense decode caches in natural order, padded to
     ``max_seq`` (the prefill->decode KV hand-off of the dense oracle).
-    SSM layers hand their state over as it is; a model with no attention
-    layer gets ``cache_len`` 0, as in the reference."""
+    SSM layers hand their state over as it is, and so does the cross KV;
+    a model with no attention layer gets ``cache_len`` 0, as in the
+    reference."""
     caches = {}
     cache_len = None
     for i, spec in enumerate(cfg.pattern):
         ent = history[str(i)]["self"]
+        if "cross" in history[str(i)]:
+            caches[str(i)] = {"cross": history[str(i)]["cross"]}
         if spec.mixer != "attn":
-            caches[str(i)] = {"self": ent}
+            caches.setdefault(str(i), {})["self"] = ent
             continue
         k, v, pos = ent["k"], ent["v"], ent["pos"][0]      # pos: (B, C)
         order = torch.argsort(pos, dim=1)                  # (B, C)
@@ -196,7 +217,7 @@ def history_to_decode_caches(cfg: ModelConfig, history: dict,
             z = torch.zeros(k.shape[:2] + (pad,) + k.shape[3:],
                             dtype=k.dtype, device=k.device)
             k, v = torch.cat([k, z], dim=2), torch.cat([v, z], dim=2)
-        caches[str(i)] = {"self": {"k": k, "v": v}}
+        caches.setdefault(str(i), {})["self"] = {"k": k, "v": v}
         cache_len = torch.full((k.shape[1],), C, dtype=torch.int32,
                                device=k.device)
     if cache_len is None:                                  # pure SSM

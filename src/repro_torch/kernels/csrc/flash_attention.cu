@@ -29,11 +29,13 @@
 //     once for the whole group.  Query tiles start last-first, so the
 //     longest causal rows start first.
 //   - Keys come in tiles of 64 (one 64-token page) through a four-stage
-//     ring, two tiles ahead of the one computed.  head_dim 128 loads them
-//     by TMA on a per-stage mbarrier (K3 always; K2 when a page holds
-//     whole tiles or a tile whole pages of 8 or more rows); head_dim 32
-//     and other pages by cp.async, 16 bytes a thread, each K2 key row
-//     through the page table.  head_dim 32 runs padded to 64 columns.
+//     ring, two tiles ahead of the one computed.  head_dim 64 and 128 load
+//     them by TMA on a per-stage mbarrier, one box per 64-column panel (K3
+//     always; K2 when a page holds whole tiles or a tile whole pages of 8
+//     or more rows); head_dim 32 and other pages by cp.async, 16 bytes a
+//     thread, each K2 key row through the page table.  head_dim 32 runs
+//     padded to 64 columns; 64 is one 128-byte panel with no padding, 128
+//     two panels.
 //   - S = Q.K^T and O += P.V are wgmma m64nNk16 bf16 products with fp32
 //     accumulators.  Q's A fragments stay in registers; K sits K-major in
 //     128-byte-swizzled panels of 64 columns; V, in the same layout, is
@@ -294,7 +296,8 @@ __global__ void __launch_bounds__(NT, 1)
     mbar_fence_init();
   }
   // head_dim 32: zero the padding columns of Q and of every K/V stage once
-  if (DP > D) {
+  // (64 and 128 fill whole panels and have none)
+  if constexpr (DP > D) {
     constexpr int PADC = 8 - CPR;
     for (int i = tid; i < (BM + 2 * STAGES * BN) * PADC; i += NT) {
       const int row = i / PADC, c = CPR + i % PADC;
@@ -389,8 +392,10 @@ __global__ void __launch_bounds__(NT, 1)
   // Warp 0 loads every tile.  What it needs of tile t is fetched one tile
   // before the copies are issued, so the reads are in flight meanwhile:
   // pre[0], with TMA into K2's pages, the first pool row of this lane's
-  // box of row group lane/4 (-1: no box); pre[1..2], K3's positions of
-  // keys lane and lane + 32.
+  // box of row group lane / BOXES (-1: no box); pre[1..2], K3's positions
+  // of keys lane and lane + 32.  A row group takes BOXES boxes: one per
+  // panel, of K and of V.
+  constexpr int BOXES = 2 * L::NP;
   const int box_rows = PAGED ? min(p.page, BN) : BN;
   const bool pow2 = (p.page & (p.page - 1)) == 0;
   const int lp = __ffs(p.page) - 1;
@@ -402,8 +407,8 @@ __global__ void __launch_bounds__(NT, 1)
   auto prefetch = [&](int t, long long (&pre)[3]) {
     pre[0] = -1;
     if (TMA && PAGED) {
-      const int j = t * BN + (lane >> 2) * box_rows;
-      if ((lane >> 2) < BN / box_rows && j < n_keys) pre[0] = pool_row(j);
+      const int j = t * BN + (lane / BOXES) * box_rows;
+      if (lane / BOXES < BN / box_rows && j < n_keys) pre[0] = pool_row(j);
     }
     if (!PAGED)
 #pragma unroll
@@ -434,8 +439,8 @@ __global__ void __launch_bounds__(NT, 1)
       // K3: one box per panel and tensor, rows past Sk arrive as zeros
       const int groups = PAGED ? nv / box_rows : 1;
       tma_rows = PAGED ? groups * box_rows : BN;
-      bytes = groups * 4 * box_rows * 128;
-      const int g = lane >> 2, panel = (lane >> 1) & 1, isv = lane & 1;
+      bytes = groups * BOXES * box_rows * 128;
+      const int g = lane / BOXES, panel = (lane >> 1) % L::NP, isv = lane & 1;
       if (g < groups) {
         const uint32_t dst = sbase + (isv ? L::V_OFF : L::K_OFF) +
                              st * L::KV_TILE + panel * L::KV_PANEL +
@@ -671,16 +676,20 @@ int launch_kernel(const AttnParams& p, const CUtensorMap& tmk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// head_dim 128 loads K/V by TMA where its boxes fit: K3 always, K2 when a
-// page holds whole 64-key tiles or a tile whole pages of at least 8 rows
-// (boxes stay 1024-byte aligned for the swizzle).  Everything else copies
-// by cp.async.  Both paths compute the same function; the choice is made
-// from the shapes alone.
+// head_dim 64 and 128 load K/V by TMA where its boxes fit: K3 always, K2
+// when a page holds whole 64-key tiles or a tile whole pages of at least 8
+// rows (boxes stay 1024-byte aligned for the swizzle).  A box is 64 columns
+// (one SW128 panel) of one KV head by box_rows keys: head_dim 64 takes one
+// box per row group and tensor, 128 two.  Rows past K3's Sk lie outside
+// the map and arrive as zeros, so the zero-fill rule holds at both widths.
+// head_dim 32 (half a panel) and every other page size copy by cp.async.
+// Both paths compute the same function; the choice is made from the shapes
+// alone.
 template <int D, bool PAGED>
 int launch_tc(const AttnParams& p, cudaStream_t stream) {
   if (p.H / p.KVH > BM) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tmk{}, tmv{};
-  if constexpr (D == 128) {
+  if constexpr (D % 64 == 0) {
     const bool boxes = !PAGED || p.page % BN == 0 ||
                        (p.page >= 8 && BN % p.page == 0);
     if (boxes) {
@@ -944,9 +953,11 @@ int dispatch(const AttnParams& p, int D, int dtype, cudaStream_t stream) {
          reinterpret_cast<uintptr_t>(p.v)) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
     if (D == 128) return tc::launch_tc<128, PAGED>(p, stream);
+    if (D == 64) return tc::launch_tc<64, PAGED>(p, stream);
     if (D == 32) return tc::launch_tc<32, PAGED>(p, stream);
   } else if (dtype == DTYPE_F32) {
     if (D == 128) return simt::launch_simt<128, PAGED>(p, stream);
+    if (D == 64) return simt::launch_simt<64, PAGED>(p, stream);
     if (D == 32) return simt::launch_simt<32, PAGED>(p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -59,6 +59,9 @@
 //     head, one rescale of the accumulators, exp2f, then P.V (thread =
 //     16-byte column chunk x key group) from the staged V rows.  P stays
 //     fp32.
+//   - head_dim 32, 64 and 128.  A key row is CH 16-byte chunks (bf16: 4,
+//     8, 16); at bf16 head_dim 64 a tile is 8 KB, so the ring holds four
+//     stages (NS is capped at 4) and a block keeps three tiles in flight.
 //   - GQA groups of 1, 2, 4, 6, 8 and 16 heads.  Above 8 heads, the two
 //     halves of the block's threads each keep the P.V accumulators of half
 //     the group over the same staged V tile (K/V leave device memory once
@@ -599,9 +602,11 @@ int dispatch(const DecodeParams& p, int D, int dtype, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DTYPE_BF16) {
     if (D == 128) return by_group<__nv_bfloat16, 128>(p, s);
+    if (D == 64) return by_group<__nv_bfloat16, 64>(p, s);
     if (D == 32) return by_group<__nv_bfloat16, 32>(p, s);
   } else if (dtype == DTYPE_F32) {
     if (D == 128) return by_group<float, 128>(p, s);
+    if (D == 64) return by_group<float, 64>(p, s);
     if (D == 32) return by_group<float, 32>(p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

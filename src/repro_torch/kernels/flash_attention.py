@@ -28,7 +28,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 128)
+# head_dims the kernels are built for (``dispatch`` in csrc/flash_attention.cu
+# and csrc/paged_decode.cu); any other raises on the card
+_HEAD_DIMS = (32, 64, 128)
 
 
 def _zero_dead_rows(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:

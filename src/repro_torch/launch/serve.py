@@ -10,9 +10,12 @@ registered config (``--arch``: ``yi-9b``, ``llama3-8b``, ``llama3-70b``,
 ``chatglm3-6b``, ``nemotron-4-15b``, ``phi4-mini-3.8b``, the M-RoPE
 ``qwen2-vl-72b``, the attention-free ``mamba2-1.3b``, the MoEs
 ``qwen2-moe-a2.7b`` and ``mixtral-8x22b``).  ``serve`` is the entry point
-for any config (``chip_smoke.py`` drives Llama-3-8B, Mamba-2-1.3B,
-Qwen1.5-MoE-A2.7B, ChatGLM3-6B and Nemotron-4-15B at their published
-widths through it).
+for any decoder-only config (``chip_smoke.py`` drives Llama-3-8B,
+Mamba-2-1.3B, Qwen1.5-MoE-A2.7B, ChatGLM3-6B and Nemotron-4-15B at their
+published widths through it).  The engine takes no encoder frames, as the
+reference's does not, so an encoder-decoder (``whisper-medium``) is
+refused: it runs through ``core/cdsp.chunked_prefill(...,
+encoder_frames=...)`` and dense decode instead.
 """
 
 from __future__ import annotations
@@ -36,7 +39,14 @@ def serve(cfg, params, prompts: Sequence[np.ndarray], *, ctx,
           spec: ClusterSpec = SPEC, max_batch: int = 8, max_seq: int = 512,
           **engine_kw) -> ServingEngine:
     """Serve ``prompts`` arriving ``1 / rate`` seconds apart (event clock)
-    and return the drained engine: outputs, chunk_log, request records."""
+    and return the drained engine: outputs, chunk_log, request records.
+    Raises ValueError for an encoder-decoder config."""
+    if cfg.encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: the serving engine takes no "
+            "encoder frames (neither does the reference's); run it through "
+            "core.cdsp.chunked_prefill(..., encoder_frames=...) and dense "
+            "decode")
     pol = (policy if isinstance(policy, Policy)
            else make_policy(policy, table1_model(), spec))
     eng = ServingEngine(cfg, params, spec, pol, ctx=ctx, max_batch=max_batch,

@@ -9,7 +9,12 @@ Single-device branches of the reference (models/attention.py):
       the card) over {"k","v"} buffers; with a sliding window, dense
       decode may keep a ring buffer of the last S_max <= window tokens
       (``ctx.ring_cache``) or attend over a window + 8 slice of a buffer
-      of at least 4 windows (``ctx.window_slice``).
+      of at least 4 windows (``ctx.window_slice``);
+  encode — an encoder's self-attention: the train branch with no cache
+      (Whisper's encoder, non-causal, K3 on the card).
+``cross_attention`` is the encoder-decoder's cross attention over the
+encoder's K/V, with the ``x_``-prefixed weights: "cross" in prefill and
+train (K3 on the card), "cross_decode" in a decode tick (K4 on the card).
 """
 
 from __future__ import annotations
@@ -24,21 +29,59 @@ from repro_torch.models.layers import apply_rope
 from repro_torch.models.sharding import ExecContext
 
 
+def _proj(x: torch.Tensor, p: dict, cfg: ModelConfig, name: str,
+          heads: int, prefix: str) -> torch.Tensor:
+    """One of the q/k/v projections: (B, S, heads, head_dim)."""
+    y = x @ p[f"{prefix}w{name}"]
+    if cfg.qkv_bias:
+        y = y + p[f"{prefix}b{name}"]
+    return y.reshape(x.shape[0], x.shape[1], heads, cfg.head_dim_)
+
+
 def qkv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
-    dh = cfg.head_dim_
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.padded_heads, dh),
-            k.reshape(B, S, cfg.n_kv_heads, dh),
-            v.reshape(B, S, cfg.n_kv_heads, dh))
+    return (_proj(x, p, cfg, "q", cfg.padded_heads, ""),
+            *kv_proj(x, p, cfg))
 
 
-def out_proj(o: torch.Tensor, p: dict) -> torch.Tensor:
+def kv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig, prefix: str = ""
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k and v alone; with ``prefix="x_"`` the cross KV of an encoder's
+    output (the reference takes them from its ``qkv_proj`` and drops q)."""
+    return (_proj(x, p, cfg, "k", cfg.n_kv_heads, prefix),
+            _proj(x, p, cfg, "v", cfg.n_kv_heads, prefix))
+
+
+def out_proj(o: torch.Tensor, p: dict, prefix: str = "") -> torch.Tensor:
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"]
+    return o.reshape(B, S, -1) @ p[prefix + "wo"]
+
+
+def cross_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                    ctx: ExecContext, positions: torch.Tensor, mode: str,
+                    cache: dict) -> torch.Tensor:
+    """The decoder's queries over the encoder's cross KV ``cache``
+    {"k","v"} (B, S_x, KVH, D), every key valid, with the layer's ``x_``
+    weights: "cross" through ``ops.attention`` with key positions
+    0..S_x-1, non-causal (reference attention.py:241-247); "cross_decode"
+    (x (B, 1, d)) through ``ops.decode_attention`` with lengths S_x
+    (reference attention.py:230-237).  Only q is projected from x (the
+    reference's k/v of x go unused)."""
+    prefix = "x_"
+    B = x.shape[0]
+    q = apply_rope(_proj(x, p, cfg, "q", cfg.padded_heads, prefix),
+                   positions, cfg)
+    S_x = cache["k"].shape[1]
+    if mode == "cross_decode":
+        lengths = torch.full((B,), S_x, dtype=torch.int32, device=x.device)
+        o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths,
+                                 impl=ctx.impl)
+        return out_proj(o[:, None], p, prefix)
+    pos2d = positions[0] if positions.dim() == 3 else positions
+    kv_pos = torch.arange(S_x, dtype=torch.int32, device=x.device)
+    o = ops.attention(q, cache["k"], cache["v"], q_pos=pos2d, kv_pos=kv_pos,
+                      causal=False, impl=ctx.impl)
+    return out_proj(o, p, prefix)
 
 
 def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -106,7 +149,7 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
                                  impl=ctx.impl)
         return out_proj(o[:, None], p), {"k": k_cache, "v": v_cache}
 
-    if mode not in ("train", "prefill"):
+    if mode not in ("train", "prefill", "encode"):
         raise NotImplementedError(f"attention mode {mode!r}")
     k_self, v_self = k, v
     new_cache = {"k": k_self, "v": v_self} if mode == "prefill" else None

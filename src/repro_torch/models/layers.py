@@ -1,4 +1,5 @@
-"""Basic transformer layers: RMS norm, rotary embeddings, MLP, embeddings.
+"""Basic transformer layers: RMS norm, rotary embeddings, MLP, embeddings
+(token and learned positional).
 
 Plain functions on tensors; parameters are the dict tree of ``params.py``,
 stored in ``cfg.dtype``.  Computation dtype follows the input.
@@ -104,3 +105,14 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, dtype) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return x @ table.t()
+
+
+def learned_pos(positions: torch.Tensor, table: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """Learned positional embeddings (Whisper): rows of ``table`` at
+    ``positions`` (B, S), or at the first row of (3, B, S) positions,
+    clipped to the table as the reference does."""
+    if positions.dim() == 3:
+        positions = positions[0]
+    idx = positions.long().clamp(0, table.shape[0] - 1)
+    return table[idx].to(dtype)

@@ -3,7 +3,10 @@ reference's parameter tree.
 
 The tree mirrors the reference: ``{"embed", "final_norm", "unembed",
 "blocks": {pattern position: {name: (n_blocks, ...)}}}`` with each pattern
-position's parameters stacked over a leading ``n_blocks`` axis.  Matrices
+position's parameters stacked over a leading ``n_blocks`` axis; learned
+positions add ``pos_emb``, and an encoder-decoder (Whisper) adds the cross
+attention leaves (``normx``, ``x_wq``...) to its decoder layers and an
+``encoder`` tree ``{"blocks": {"0": ...}, "final_norm", "pos_emb"}``.  Matrices
 are stored in ``cfg.dtype`` (the reference keeps fp32 and casts at every
 call; casting once at load gives the same numbers).  Norm scales and the
 SSM's per-head ``dt_bias``, ``A_log`` and ``D``, which the reference reads
@@ -22,14 +25,14 @@ from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.sharding import resolve_device
 
 
-def _attn_shapes(cfg: ModelConfig) -> dict:
+def _attn_shapes(cfg: ModelConfig, prefix: str = "") -> dict:
     d, dh = cfg.d_model, cfg.head_dim_
     hp, kv = cfg.padded_heads, cfg.n_kv_heads
     s = {"wq": (d, hp * dh), "wk": (d, kv * dh), "wv": (d, kv * dh),
          "wo": (hp * dh, d)}
     if cfg.qkv_bias:
         s.update({"bq": (hp * dh,), "bk": (kv * dh,), "bv": (kv * dh,)})
-    return s
+    return {prefix + k: v for k, v in s.items()}
 
 
 def _mamba_shapes(cfg: ModelConfig) -> dict:
@@ -53,13 +56,13 @@ def _ffn_shapes(cfg: ModelConfig, d_ff: int) -> dict:
 
 
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    if spec.cross_attn:
-        raise NotImplementedError(
-            f"{cfg.name}: cross attention layers are not ported yet")
     d = cfg.d_model
     s = {"norm1": (d,)}
     s.update(_attn_shapes(cfg) if spec.mixer == "attn"
              else _mamba_shapes(cfg))
+    if spec.cross_attn:
+        s["normx"] = (d,)
+        s.update(_attn_shapes(cfg, prefix="x_"))
     if spec.ffn != "none":
         s["norm2"] = (d,)
         if spec.ffn == "moe":
@@ -84,16 +87,20 @@ def _stack(tree: dict, n: int) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Shapes of the parameter tree (reference params.py:80)."""
-    if cfg.encoder_decoder or cfg.pos_embedding != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and learned positions are not "
-            "ported yet")
     d = cfg.d_model
     shapes = {"embed": (cfg.padded_vocab, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.padded_vocab, d)
+    if cfg.pos_embedding == "learned":
+        shapes["pos_emb"] = (min(cfg.max_position, 1 << 16), d)
     shapes["blocks"] = {str(i): _stack(_layer_shapes(cfg, spec), cfg.n_blocks)
                         for i, spec in enumerate(cfg.pattern)}
+    if cfg.encoder_decoder:
+        enc = _layer_shapes(cfg, LayerSpec(mixer="attn", ffn="dense"))
+        shapes["encoder"] = {
+            "blocks": {"0": _stack(enc, cfg.n_encoder_layers)},
+            "final_norm": (d,),
+            "pos_emb": (min(cfg.max_position, 1 << 16), d)}
     return shapes
 
 
@@ -114,7 +121,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     ``conv_b`` at zero, ``dt_bias`` so that softplus(dt_bias) spans
     [1e-3, 1e-1] log-uniformly, ``A_log = log(U(1, 16))``, every other
     tensor normal with std ``1/sqrt(fan_in)`` (fan_in = second-to-last
-    dim).  Torch's generator does not reproduce the reference's numbers;
+    dim of the stacked shape; the cross-attention biases ``x_b*`` do not
+    start with "b" and so are drawn too, as in the reference).  Torch's generator does not reproduce the reference's numbers;
     tests bridge the reference's tree with ``params_from_numpy`` instead.
     Padded query heads (``cfg.pad_heads_to``) are zeros in ``wq`` and
     ``wo``.  ``device`` defaults to CUDA (raising without a card)."""

@@ -19,7 +19,7 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     """Every kernel against its plain version at the edge cases of
-    ``chip_smoke.py``: page sizes 8-64, head_dim 32/128, GQA groups 1-8,
+    ``chip_smoke.py``: page sizes 8-64, head_dim 32/64/128, GQA groups 1-16,
     windows, POS_PAD columns, masked and padded rows, ragged tails, K3 key
     positions permuted within and across tiles, chunks of 17 queries, the
     fused append's pool bytes, dense caches of any length with an offset,
@@ -258,7 +258,7 @@ def test_prefill_kernels_raise_on_unaligned_bf16(which):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_attention_tile_classes_on_card(D):
     """K3 in bf16: key positions permuted across tiles (classified by
     position, not index), 17 queries (below one 128-row tile), and rows
@@ -422,7 +422,7 @@ def test_paged_decode_nan_slots_inside_a_tile_on_card(page):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("G", [1, 2, 4, 6, 8, 16])
 def test_paged_decode_append_slot_in_a_later_split_on_card(G, D, dtype):
     """The appended key lies in a tile that a block other than the
@@ -540,12 +540,15 @@ def test_decode_kernels_raise_on_other_groups(G):
 
 @pytest.mark.cuda
 def test_decode_kernel_instances_ptxas_report_on_card():
-    """K1/K4's split kernel is built for bf16 and fp32, head_dim 32 and
-    128, every GQA group of ``flash_decode.GROUPS`` and both modes (paged,
-    dense): the build's ``-Xptxas -v`` report names each instance with
-    its registers.  The instances at group 6, and at group 16 with
-    head_dim 32, spill nothing; the head_dim-128 instances at 16 spill a
-    few bytes at 255 registers (PERF.md section 6)."""
+    """K1/K4's split kernel is built for bf16 and fp32, head_dim 32, 64
+    and 128, every GQA group of ``flash_decode.GROUPS`` and both modes
+    (paged, dense): the build's ``-Xptxas -v`` report names each instance
+    with its registers.  At head_dim 32 and 128 the instances at group 6,
+    and at group 16 with head_dim 32, spill nothing; at head_dim 64 those
+    at groups 1, 2, 4 (Whisper's path runs group 1) and 16.  The
+    head_dim-128 instances at 16 spill a few bytes at 255 registers, the
+    head_dim-64 ones at 8 (and fp32 at 6) a few at 168 (PERF.md section
+    6)."""
     _card()
     import re
     import chip_smoke
@@ -561,11 +564,202 @@ def test_decode_kernel_instances_ptxas_report_on_card():
         if m:
             found[m.groups()] = text
     want = {(t, str(d), str(g), dense) for t in ("__nv_bfloat16", "float")
-            for d in (32, 128) for g in GROUPS for dense in ("0", "1")}
+            for d in (32, 64, 128) for g in GROUPS for dense in ("0", "1")}
     assert set(found) == want, sorted(set(found) ^ want)
     assert all("registers" in text for text in found.values())
     for key, text in found.items():
-        if key[2] == "6" or (key[2] == "16" and key[1] == "32"):
+        if ((key[1] != "64" and (key[2] == "6" or (key[2] == "16"
+                                                   and key[1] == "32")))
+                or (key[1] == "64" and key[2] in ("1", "2", "4", "16"))):
+            assert "0 bytes spill stores, 0 bytes spill loads" in text, \
+                (key, text)
+
+
+# Whisper-medium's attention: 16 heads over 16 KV heads of 64 (MHA), 1500
+# encoder frames, non-causal in the encoder and the cross attention
+WHISPER_HEADS = dict(H=16, KVH=16, D=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Sk", [(1500, 1500), (224, 1500), (17, 333)])
+def test_flash_attention_noncausal_d64_on_card(Sq, Sk, dtype):
+    """K3 at Whisper's heads without the causal mask, as its encoder
+    (1500 x 1500) and cross attention (224 prompt tokens over 1500 frames)
+    call it, and at 17 queries over 333 keys: Sq and Sk are multiples of
+    neither the 128-row query tile nor the 64-key tile, so the last key
+    tile is partial (rows past Sk arrive as zeros and are masked) and no
+    tile is skipped."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator().manual_seed(15)
+    h = WHISPER_HEADS
+    B = 2
+    q = torch.randn(B, Sq, h["H"], h["D"], generator=g).to(dev, dtype)
+    k = torch.randn(B, Sk, h["KVH"], h["D"], generator=g).to(dev, dtype)
+    v = torch.randn(B, Sk, h["KVH"], h["D"], generator=g).to(dev, dtype)
+    qp = torch.arange(Sq, dtype=torch.int32, device=dev)
+    kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+    before = flash_attention.launches
+    o, lse = flash_attention(q, k, v, qp, kp, causal=False)
+    po, plse = flash_attention_plain(q, k, v, qp, kp, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(o.float()).all()
+    _close_elementwise(o, po, dtype)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page", [8, 16, 64, 48])
+def test_paged_prefill_nan_slots_d64_on_card(page, dtype):
+    """K2 at head_dim 64 (one 128-byte panel: TMA boxes of 64 columns at
+    pages 8, 16 and 64, cp.async at 48) with NaN in the last page's
+    unused slots inside a key tile, with and without a window."""
+    dev = _card()
+    import chip_smoke
+    from repro_torch.kernels.flash_attention import (
+        paged_flash_prefill, paged_flash_prefill_plain)
+    g = torch.Generator().manual_seed(16)
+    hist, Sq, H, KVH, D = 1001, 150, 16, 16, 64
+    q = torch.randn(1, Sq, H, D, generator=g).to(dev, dtype)
+    kd = torch.randn(1, hist, KVH, D, generator=g).to(dev, dtype)
+    vd = torch.randn(1, hist, KVH, D, generator=g).to(dev, dtype)
+    kp, table = chip_smoke._pool_from_dense(kd, page, g.manual_seed(17))
+    vp, _ = chip_smoke._pool_from_dense(vd, page, g.manual_seed(17))
+    last = table[0, -1].long()
+    kp[last, hist % page:] = float("nan")
+    vp[last, hist % page:] = float("nan")
+    hl = torch.tensor([hist], dtype=torch.int32, device=dev)
+    qp = hist + torch.arange(Sq, dtype=torch.int32, device=dev)[None]
+    for window in (None, 500):
+        o, lse = paged_flash_prefill(q, kp, vp, table, hl, qp, window=window)
+        po, plse = paged_flash_prefill_plain(q, kp, vp, table, hl, qp,
+                                             window=window)
+        assert torch.isfinite(o.float()).all()
+        _close_elementwise(o, po, dtype)
+        torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_decode_nan_slots_d64_on_card(page, dtype):
+    """K1 at Whisper's heads (group 1, head_dim 64: four ring stages of
+    8 KB tiles in bf16) over rows whose unused slots hold NaN."""
+    dev = _card()
+    g = torch.Generator().manual_seed(18)
+    h = WHISPER_HEADS
+    _check_paged(*_paged_case(dev, g, [1500, 700, 45, 0], h["H"], h["KVH"],
+                              h["D"], page, dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,G,window,offset", [
+    (1500, 1, None, 0), (203, 1, 50, 7), (300, 4, 100, 5), (500, 16, 200, 0)])
+def test_dense_decode_d64_on_card(S, G, window, offset, dtype):
+    """K4 at head_dim 64: Whisper's cross decode (every one of 1500 keys
+    valid, 1500 not a multiple of the 64-key tile), and ragged caches with
+    a window and an offset whose slots outside the window hold NaN; a row
+    with no valid key reads o = 0 and lse = -1e30."""
+    dev = _card()
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    g = torch.Generator().manual_seed(19)
+    KVH, D = 2, 64
+    q = torch.randn(3, G * KVH, D, generator=g).to(dev, dtype)
+    k = torch.randn(3, S, KVH, D, generator=g).to(dev, dtype)
+    v = torch.randn(3, S, KVH, D, generator=g).to(dev, dtype)
+    ln = torch.tensor([S + offset, 0, S // 2 + offset], dtype=torch.int32,
+                      device=dev)
+    pos = offset + torch.arange(S, device=dev)
+    ok = pos[None] < ln[:, None]
+    if window is not None:
+        ok &= pos[None] >= ln[:, None] - window
+    k[~ok], v[~ok] = float("nan"), float("nan")
+    o, lse = flash_decode(q, k, v, ln, window=window, kv_offset=offset)
+    po, plse = flash_decode_plain(q, k, v, ln, window=window,
+                                  kv_offset=offset)
+    torch.cuda.synchronize()
+    _close_elementwise(o, po, dtype)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=0)
+    assert not o[1].any() and bool((lse[1] == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_kernels_raise_on_unaligned_bf16_at_d64(which):
+    """At head_dim 64 too, bf16 K1-K4 read 16 bytes at a time: a
+    contiguous view at an odd element offset raises at launch, and an
+    aligned call afterwards runs."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     paged_flash_prefill)
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  paged_flash_decode)
+
+    def make(shape, shift):
+        n = torch.Size(shape).numel()
+        buf = torch.randn(n + 1, device=dev).to(torch.bfloat16)
+        return buf[shift:shift + n].view(shape)
+
+    S, page, KVH, D = 64, 16, 4, 64
+    t = {n: make((1, S, KVH, D), int(n == which)) for n in "qkv"}
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_attention(t["q"], t["k"], t["v"], pos, pos, causal=False)
+    pools = {n: make((S // page, page, KVH, D), int(n == which))
+             for n in "kv"}
+    table = torch.arange(S // page, dtype=torch.int32, device=dev)[None]
+    hl = torch.tensor([S - 1], dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        paged_flash_prefill(t["q"], pools["k"], pools["v"], table, hl,
+                            pos + S)
+    q1 = make((1, KVH, D), int(which == "q"))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        paged_flash_decode(q1, pools["k"], pools["v"], table, hl)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_decode(q1, t["k"], t["v"], hl)
+    aligned = {n: x.clone() for n, x in t.items()}
+    o, _ = flash_attention(aligned["q"], aligned["k"], aligned["v"], pos,
+                           pos, causal=False)
+    od, _ = flash_decode(aligned["q"][:, 0], aligned["k"], aligned["v"], hl)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(
+        od.float()).all()
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_instances_ptxas_report_on_card():
+    """K2/K3's kernels are built for head_dim 32, 64 and 128 in both
+    dtypes, and at 64 and 128 the tensor-core kernel in both its TMA and
+    its cp.async form; none of the head_dim-64 instances spills (PERF.md
+    section 6)."""
+    _card()
+    import re
+    import chip_smoke
+    from repro_torch.kernels import _build
+    _build.library("flash_attention")
+    report = chip_smoke._ptxas_report(
+        (_build.BUILD / "flash_attention.log").read_text())
+    found = {}
+    for name, text in report.items():
+        m = re.search(r"attn_(tc|simt)_kernel<(?:\(int\))?(\d+), "
+                      r"(?:\(bool\))?(\w+)(?:, (?:\(bool\))?(\w+))?>", name)
+        if m:
+            found[m.groups()] = text
+    want = {("simt", str(d), paged, None) for d in (32, 64, 128)
+            for paged in ("0", "1")}
+    want |= {("tc", str(d), paged, tma) for d in (32, 64, 128)
+             for paged in ("0", "1")
+             for tma in (("0", "1") if d > 32 else ("0",))}
+    assert set(found) == want, sorted(set(found) ^ want)
+    for key, text in found.items():
+        assert "registers" in text
+        if key[1] == "64":
             assert "0 bytes spill stores, 0 bytes spill loads" in text, \
                 (key, text)
 

@@ -21,7 +21,8 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # the Mamba-2, MoE and dense-family slices' modules are among them
+    # the Mamba-2, MoE, dense-family and Whisper slices' modules are among
+    # them
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in files[:-1]}
     assert {"compat.py", "configs/mamba2_1_3b.py", "models/ssm.py",
@@ -29,7 +30,8 @@ def test_port_imports_neither_jax_nor_reference():
             "models/moe.py", "configs/qwen2_moe_a2_7b.py",
             "configs/chatglm3_6b.py", "configs/nemotron_4_15b.py",
             "configs/phi4_mini_3_8b.py", "configs/llama3_70b.py",
-            "configs/qwen2_vl_72b.py", "configs/mixtral_8x22b.py"} <= names
+            "configs/qwen2_vl_72b.py", "configs/mixtral_8x22b.py",
+            "configs/whisper_medium.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
            for p in files for line, name in _imports(p)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]

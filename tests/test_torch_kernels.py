@@ -73,6 +73,7 @@ def _tables(rng, lengths, page, n_pages, extra_cols=0):
     (1, 128, 128, 12, 2, 32, 24, 0),       # group 6, window
     (2, 64, 128, 16, 1, 32, None, 64),     # group 16
     (1, 128, 128, 16, 1, 32, 24, 0),       # group 16, window
+    (2, 64, 128, 4, 4, 64, None, 64),      # head_dim 64 (Whisper), MHA
 ])
 def test_flash_attention_plain_matches_pallas(B, Sq, Sk, H, KVH, D, window,
                                               offset):
@@ -92,6 +93,35 @@ def test_flash_attention_plain_matches_pallas(B, Sq, Sk, H, KVH, D, window,
     assert flash_attention.launches == 0      # CPU tensors: plain version
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH", [
+    (2, 64, 256, 4, 4),      # Whisper's cross attention: Sq != Sk, MHA
+    (1, 128, 128, 4, 4),     # its encoder: Sq = Sk
+    (1, 64, 128, 8, 2),      # a GQA group of 4
+])
+def test_flash_attention_noncausal_d64_matches_pallas(B, Sq, Sk, H, KVH):
+    """K3's plain version at head_dim 64 without the causal mask, as the
+    encoder and the cross attention call it (key positions 0..Sk-1 for
+    queries at other positions), against the Pallas kernel in interpret
+    mode (which takes whole blocks: the ragged 1500 keys go to the card
+    tests)."""
+    rng = np.random.default_rng(9)
+    D = 64
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, KVH, D)).astype(np.float32)
+    qp = np.arange(7, 7 + Sq, dtype=np.int32)
+    kp = np.arange(Sk, dtype=np.int32)
+    want_o, want_l = j_flash(*map(jnp.asarray, (q, k, v, qp, kp)),
+                             causal=False, interpret=True, with_lse=True)
+    got_o, got_l = flash_attention(*map(torch.from_numpy, (q, k, v, qp, kp)),
+                                   causal=False)
+    _close(got_o, want_o)
+    _close(got_l, want_l)
+    o = ops.attention(*map(torch.from_numpy, (q, k, v, qp, kp)),
+                      causal=False)
+    _close(o, want_o)
+
+
 # ------------------------------------------------------------------- K2
 @pytest.mark.parametrize("hist,Sq,H,KVH,D,page,window", [
     ([24, 0], 16, 4, 2, 32, 8, None),       # page 8, a row without history
@@ -101,6 +131,7 @@ def test_flash_attention_plain_matches_pallas(B, Sq, Sk, H, KVH, D, window,
     ([45], 19, 12, 2, 32, 16, 20),          # group 6, window
     ([24, 0], 16, 16, 1, 32, 8, None),      # group 16
     ([45], 19, 16, 1, 32, 16, 20),          # group 16, window
+    ([45, 20], 16, 4, 4, 64, 16, None),     # head_dim 64, MHA
 ])
 def test_paged_prefill_plain_matches_pallas(hist, Sq, H, KVH, D, page,
                                             window):
@@ -131,6 +162,7 @@ def test_paged_prefill_plain_matches_pallas(hist, Sq, H, KVH, D, page,
     ([40, 17], (), 12, 2, 32, 16, 12, 2),          # group 6, window
     ([13, 0, 5], (1,), 16, 1, 32, 8, None, 0),     # group 16, padded row
     ([40, 17], (), 16, 1, 32, 16, 12, 2),          # group 16, window
+    ([70, 3, 0], (2,), 4, 4, 64, 16, None, 1),     # head_dim 64, MHA
 ])
 def test_paged_decode_fused_append_matches_pallas(lengths, pad_rows, H, KVH,
                                                   D, page, window, extra):
@@ -201,6 +233,9 @@ def test_paged_decode_all_masked_rows_match_pallas():
     ([70, 45], 256, 12, 2, 32, 16, 10),     # group 6, window + offset
     ([40, 64, 0], 64, 16, 1, 32, None, 0),  # group 16, an empty row
     ([70, 45], 256, 16, 1, 32, 16, 10),     # group 16, window + offset
+    ([256, 256], 256, 4, 4, 64, None, 0),   # Whisper's cross decode: every
+                                            #   key valid, head_dim 64, MHA
+    ([300, 129], 512, 8, 8, 64, 50, 0),     # head_dim 64, window
 ])
 def test_flash_decode_plain_matches_pallas(lengths, S, H, KVH, D, window,
                                            offset):
@@ -354,6 +389,7 @@ def _split_decode_emulation(q, k, v, lengths, *, table=None, page_pos=None,
     ([500], (), 8, 4, 128, 128, 130, 0),           # page 128, window
     ([300, 0, 90], (1,), 12, 2, 32, 16, 60, 1),    # group 6
     ([400, 70], (), 16, 1, 32, 8, None, 0),        # group 16, page 8
+    ([300, 45], (), 4, 4, 64, 16, None, 0),        # head_dim 64, MHA
 ])
 def test_split_decode_order_matches_plain_and_pallas(lengths, pad_rows, H,
                                                      KVH, D, page, window,
@@ -423,6 +459,8 @@ def test_split_decode_order_matches_plain_and_pallas(lengths, pad_rows, H,
     ([190, 77], 203, 4, 2, 32, 70, 7),      # ragged S, window, offset
     ([190, 0], 203, 12, 2, 32, 70, 7),      # group 6
     ([250, 30], 256, 16, 1, 32, None, 0),   # group 16
+    ([1500, 1500], 1500, 4, 4, 64, None, 0),  # Whisper's cross decode:
+                                              #   1500 keys, head_dim 64
 ])
 def test_split_decode_order_dense_matches_plain_and_pallas(lengths, S, H, KVH,
                                                            D, window, offset):

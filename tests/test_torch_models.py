@@ -1,9 +1,10 @@
-"""The port's models (dense decoder, Mamba-2 and MoE) against the
-reference, on the CPU.
+"""The port's models (dense decoder, Mamba-2, MoE and the Whisper
+encoder-decoder) against the reference, on the CPU.
 
 Both packages get the same weights (the reference's seeded init, bridged
-through ``params_from_numpy``) and the same numpy inputs.  Logits agree to
-fp32 ``atol = rtol = 1e-4``; greedy tokens are identical.
+through ``params_from_numpy``) and the same numpy inputs (Whisper also
+the same encoder frames).  Logits agree to fp32 ``atol = rtol = 1e-4``;
+greedy tokens are identical.
 """
 
 import dataclasses
@@ -26,7 +27,7 @@ from repro_torch.models.transformer import forward
 DENSE_FAMILIES = ["chatglm3-6b", "nemotron-4-15b", "phi4-mini-3.8b",
                   "llama3-70b", "qwen2-vl-72b", "mixtral-8x22b"]
 ARCHS = ["llama3-8b", "yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b",
-         *DENSE_FAMILIES]
+         *DENSE_FAMILIES, "whisper-medium"]
 ATTN_ARCHS = ["llama3-8b", "yi-9b", "qwen2-moe-a2.7b", *DENSE_FAMILIES]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -39,6 +40,21 @@ def _positions(cfg, B, S, offset=0):
     if cfg.rope_type == "mrope":
         pos = np.broadcast_to(pos[None], (3, B, S))
     return pos.copy()
+
+
+def _frames(cfg, B):
+    """The stubbed audio frontend's (B, cross_kv_len, d_model) encoder
+    frames of an encoder-decoder, from a seed; None for a decoder."""
+    if not cfg.encoder_decoder:
+        return None
+    return np.random.default_rng(5).standard_normal(
+        (B, cfg.cross_kv_len, cfg.d_model)).astype(np.float32)
+
+
+def _enc_kw(frames, to):
+    """``encoder_frames=`` for one package (``to``: jnp.asarray or
+    torch.from_numpy), or nothing."""
+    return {} if frames is None else {"encoder_frames": to(frames)}
 
 
 def _port_cfg(cfg):
@@ -93,11 +109,19 @@ def test_forward_matches_reference(name, mode, reduced_params_cache):
     B, S = 2, 24
     tok = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     pos = _positions(cfg, B, S)
+    frames = _frames(cfg, B)
     want, want_aux, jc = j_forward(jp, cfg, J_CTX, jnp.asarray(tok),
-                                   jnp.asarray(pos), mode)
+                                   jnp.asarray(pos), mode,
+                                   **_enc_kw(frames, jnp.asarray))
     got, aux, tc = forward(tp, _port_cfg(cfg), CPU_CTX,
-                           torch.from_numpy(tok), torch.from_numpy(pos), mode)
+                           torch.from_numpy(tok), torch.from_numpy(pos), mode,
+                           **_enc_kw(frames, torch.from_numpy))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if frames is not None:
+        # the encoder-decoder is also held at the reference's own
+        # prefill-vs-train tolerance (tests/test_torch_whisper.py)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-4)
     # the MoE layers' summed load-balance loss (0 without MoE layers)
     assert abs(float(aux) - float(want_aux)) <= 1e-5
     assert (float(aux) > 0) == (cfg.moe is not None)
@@ -173,24 +197,33 @@ def test_ssm_decode_matches_reference(reduced_params_cache):
                                        **TOL)
 
 
-def _generate(params, cfg, prompt, n):
+def _generate(params, cfg, prompt, n, frames=None):
     toks = [int(t) for t in prompt]
     for _ in range(n):
         t = torch.tensor(toks)[None]
         pos = torch.from_numpy(_positions(cfg, 1, len(toks)))
-        logits, _, _ = forward(params, cfg, CPU_CTX, t, pos, "train")
+        logits, _, _ = forward(params, cfg, CPU_CTX, t, pos, "train",
+                               **_enc_kw(frames, torch.from_numpy))
         toks.append(int(torch.argmax(logits[0, -1, :cfg.vocab_size])))
     return toks[len(prompt):]
 
 
-def _generate_mrope_ref(params, cfg, prompt, n):
+def _generate_ref(params, cfg, prompt, n, frames=None):
     """conftest.generate_dense with (3, B, S) positions, which the
-    reference's M-RoPE requires."""
+    reference's M-RoPE requires, or with the encoder frames of an
+    encoder-decoder (its forward jitted: one compile of both stacks a
+    step instead of an eager scan of each)."""
     toks = list(prompt)
+    fwd = j_forward
+    if frames is not None:
+        fwd = jax.jit(lambda p, t, pos: j_forward(
+            p, cfg, J_CTX, t, pos, "train",
+            encoder_frames=jnp.asarray(frames)))
     for _ in range(n):
-        logits, _, _ = j_forward(params, cfg, J_CTX, jnp.asarray(toks)[None],
-                                 jnp.asarray(_positions(cfg, 1, len(toks))),
-                                 "train")
+        args = (params, jnp.asarray(toks)[None],
+                jnp.asarray(_positions(cfg, 1, len(toks))))
+        logits, _, _ = (fwd(*args) if frames is not None
+                        else fwd(args[0], cfg, J_CTX, *args[1:], "train"))
         toks.append(int(jnp.argmax(logits[0, -1, :cfg.vocab_size])))
     return toks[len(prompt):]
 
@@ -199,10 +232,12 @@ def _generate_mrope_ref(params, cfg, prompt, n):
 def test_greedy_tokens_match_generate_dense(name, reduced_params_cache):
     cfg, jp, tp = _bridged(reduced_params_cache, name)
     prompt = np.random.default_rng(2).integers(0, cfg.vocab_size, 17)
-    ref = (_generate_mrope_ref if cfg.rope_type == "mrope"
+    frames = _frames(cfg, 1)
+    ref = (_generate_ref if cfg.rope_type == "mrope" or cfg.encoder_decoder
            else generate_dense)
-    assert (_generate(tp, _port_cfg(cfg), prompt, 6)
-            == ref(jp, cfg, prompt, 6))
+    assert (_generate(tp, _port_cfg(cfg), prompt, 6, frames)
+            == ref(jp, cfg, prompt, 6, *(() if frames is None
+                                         else (frames,))))
 
 
 def test_moe_capacity_drops_tokens(reduced_params_cache):
