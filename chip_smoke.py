@@ -29,6 +29,23 @@ Phases, each printing JSON lines:
                also the share of (token, choice) pairs that capacity
                dropped, and the routing decisions that differ between the
                replays;
+  3b. serve_sp — Llama-3-8B at full width, bf16, served by the same
+               engine on a 4-position mesh whose positions all sit on the
+               one card (``launch.mesh``): both page pools striped 4 ways,
+               first chunks through ring attention, second chunks through
+               ring-paged prefill over the striped history (K3 per
+               position and ring step), ticks through the split-KV paged
+               decode (K1 per shard).  Each request's greedy stream
+               from the unsharded kernel engine is teacher-forced on the
+               unsharded, sharded and plain paths, and at every step each
+               path's argmax must be that token or the step a bf16 tie
+               (every path scores the two tokens within TIE_TOL), the
+               sharded engine's first parting too (exact tokens are held
+               in fp32, phase 6); the longest request's replay
+               holds each K1/K3 call to its plain version (planted faults
+               rejected) and its logits to the plain path's; device ms
+               per chunk and tick (sharded and unsharded) and one K3
+               call's time at the ring-step shapes are printed;
   4. dense   — Llama-3-8B at full width through CDSP chunked prefill over
                a dense history (K3), the hand-off to dense decode caches,
                and 16 dense decode ticks (K4); the first tick is held to
@@ -44,14 +61,15 @@ Phases, each printing JSON lines:
                the plain path's;
   6. tokens  — fp32 at two layers (full widths): each served model's
                engine gives identical greedy tokens on the kernel path and
-               the plain path, Llama's dense path gives the paged
-               engine's tokens, and Whisper's path (two encoder and two
-               decoder layers) gives the plain path's.
+               the plain path, Llama's 4-position mesh engine and its
+               dense path give the paged engine's tokens, and Whisper's
+               path (two encoder and two decoder layers) gives the plain
+               path's.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-6 run.  ``--only profile`` adds a
+subset; with no arguments phases 1-6 (3b included) run.  ``--only profile`` adds a
 torch.profiler breakdown of one full-width prefill chunk and one decode
 tick of each served model and of Whisper (kernel time by group and by
 aten op, on Qwen by MoE stage, and the card's idle share); it fails where
@@ -96,6 +114,9 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
                            "flash_attention"},
          "serve_nemotron": {"paged_flash_decode", "paged_flash_prefill",
                             "flash_attention"},
+         # the mesh path: ring steps and slabs through K3, the split-KV
+         # tick through K1; K2 stays on the single-device engine
+         "serve_sp": {"paged_flash_decode", "flash_attention"},
          "dense": {"flash_attention", "flash_decode"},
          "whisper": {"flash_attention", "flash_decode"}}
 # the served attention models whose replay holds each K1-K3 call to its
@@ -961,21 +982,32 @@ def _hist(eng, name):
                                    if k != "buckets"}
 
 
-def _replay(cfg, params, ctx, prompt, token):
+def _replay(cfg, params, ctx, prompt, tokens):
     """Request ``prompt`` through the engine's own functions on a fresh
     pool: chunk 1, chunk 2 over its history (attention: the pages, K2 +
-    K3; Mamba-2: the handed-over SSD state and conv window, K5), then one
-    decode tick on ``token``.  Returns the three logits rows."""
+    K3, or on a mesh context the striped pages through the ring; Mamba-2:
+    the handed-over SSD state and conv window, K5), then one decode tick
+    on each of ``tokens`` in turn (teacher forcing).  Returns the logits
+    rows: the two chunks', then each tick's."""
+    import numpy as np
     import torch
     from repro_torch.core.cdsp import prefill_chunk_paged
     from repro_torch.models.transformer import forward
-    from repro_torch.serving.cache_manager import PagedKVCache
+    from repro_torch.serving.cache_manager import (PagedKVCache,
+                                                   shard_block_table)
     page = 64
     L = len(prompt)
     l0 = L // 2
-    n = -(-(L + 1) // page)
-    kv = PagedKVCache(cfg, n, page, device=ctx.device)
-    blocks = list(range(n))
+    # on a mesh context the pool stripes over the SP positions: logical
+    # page j on shard j % n_sh, as the engine's BlockManager allocates
+    n_sh = ctx.pool_shards("prefill")
+    pages = -(-(L + len(tokens)) // page)
+    n = -(-pages // n_sh) * n_sh                  # whole stripes
+    kv = PagedKVCache(cfg, n, page, kv_shards=n_sh,
+                      mesh=ctx.mesh if n_sh > 1 else None,
+                      shard_axis=ctx.pool_axis("prefill"), device=ctx.device)
+    bps = n // n_sh
+    blocks = [(j % n_sh) * bps + j // n_sh for j in range(n)]
     dev = ctx.device
     toks = torch.as_tensor(prompt, device=dev)[None]
     pos = torch.arange(L, dtype=torch.int32, device=dev)[None]
@@ -988,19 +1020,24 @@ def _replay(cfg, params, ctx, prompt, token):
         kv.write_chunk(blocks, nc, pos[:, off:off + ln])
         out.append(lg[0, 0, :cfg.vocab_size].float())
         del nc
-    bt = torch.as_tensor(blocks, dtype=torch.int32, device=dev)[None]
+    bt = np.asarray(blocks, np.int32)[None]
+    if n_sh > 1:
+        bt = shard_block_table(bt, n_sh, bps)
+    bt = torch.as_tensor(bt, device=dev)
     caches = {}
     for i, spec in enumerate(cfg.pattern):
         key = str(i)
         caches[key] = {"self": (
             {"k": kv.pools[key]["k"], "v": kv.pools[key]["v"],
-             "block_table": bt[None].expand(cfg.n_blocks, 1, n)}
+             "block_table": bt[None].expand((cfg.n_blocks,) + bt.shape)}
             if spec.mixer == "attn" else aux[key]["self"])}
-    clen = torch.tensor([L], dtype=torch.int32, device=dev)
-    lg, _, _ = forward(params, cfg, ctx,
-                       torch.tensor([[token]], device=dev), clen[:, None],
-                       "decode", caches=caches, cache_len=clen)
-    out.append(lg[0, 0, :cfg.vocab_size].float())
+    for i, token in enumerate(tokens):
+        clen = torch.tensor([L + i], dtype=torch.int32, device=dev)
+        lg, _, caches = forward(params, cfg, ctx,
+                                torch.tensor([[token]], device=dev),
+                                clen[:, None], "decode", caches=caches,
+                                cache_len=clen)
+        out.append(lg[0, 0, :cfg.vocab_size].float())
     torch.cuda.synchronize()
     return out
 
@@ -1342,7 +1379,7 @@ def _serve_path(arch: str, path: str) -> dict:
     rid = len(lens) - 1
 
     def replay():
-        return _replay(cfg, params, ctx, prompts[rid], first_tokens[rid])
+        return _replay(cfg, params, ctx, prompts[rid], [first_tokens[rid]])
 
     with moe_routes() as got_routes:
         if path == "serve_mamba":
@@ -1369,7 +1406,7 @@ def _serve_path(arch: str, path: str) -> dict:
           "token")
     with moe_routes() as want_routes:
         want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid],
-                       first_tokens[rid])
+                       [first_tokens[rid]])
     if cfg.moe is not None:
         # bf16 attention differs between the paths by an ulp here and
         # there, which can flip a near-tied router choice
@@ -1392,6 +1429,284 @@ def phase_serve() -> dict:
             "serve_chatglm": _serve_path("chatglm3-6b", "serve_chatglm"),
             "serve_nemotron": _serve_path("nemotron-4-15b",
                                           "serve_nemotron")}
+
+
+# ------------------------------------------------------- phase 3b: serve_sp
+SP = 4            # mesh positions of the sequence-parallel serve phase
+
+
+def _sp_context(impl=None):
+    """The serving engine's mesh context: ``SP`` positions, every one on
+    the one card (``cuda:0``), both pools striped over them."""
+    from repro_torch.launch.mesh import make_context, make_mesh
+    return make_context(make_mesh((SP,), ("data",), device="cuda"),
+                        "serve_paged", impl=impl)
+
+
+def sp_gate_plan(n_layers: int):
+    """(calls, keep) of ``attn_call_gate`` for the sharded replay (two
+    chunks, then a decode tick) on ``SP`` positions.  Chunk 1 rings over
+    its own KV: SP positions x SP steps K3 calls a layer, in the order
+    (step, position).  Chunk 2 adds each shard's history slab: two K3
+    calls a position and step (own KV, then slab).  The tick runs K1 once
+    a shard and layer.  Kept for planted faults: chunk 2's first own and
+    slab calls (layer 0, position 0, step 0) and its last two (the last
+    layer, position SP - 1, step SP - 1, whose KV and slab came from
+    position 0), and the tick's first and last calls."""
+    c1 = SP * SP * n_layers
+    c2 = 2 * SP * SP * n_layers
+    return ({"flash_attention": c1 + c2, "paged_flash_decode": SP * n_layers},
+            {"flash_attention": (c1, c1 + 1, c1 + c2 - 2, c1 + c2 - 1),
+             "paged_flash_decode": (0, SP * n_layers - 1)})
+
+
+def _k3_ring_step_times(cfg, L: int) -> dict:
+    """One K3 call's time at the ring-step shapes of the longest request's
+    history chunk (``L / 2`` queries over ``L / 2`` history tokens, a
+    ring step of ``L / (2 SP)`` queries): over own-chunk keys on the
+    diagonal (causal), over keys of an earlier position (all visible),
+    and over a shard's history slab (positions striped by page, the dead
+    slots at INT32_MAX), each beside its bound and its plain version."""
+    import torch
+    from repro_torch.core.ring_attention import INT32_MAX
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    H, KVH, D = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim_
+    half = L // 2
+    s = half // SP                                   # queries a position
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+
+    q, k, v = randn(1, s, H, D), randn(1, s, KVH, D), randn(1, s, KVH, D)
+    qp = torch.arange(half, half + s, dtype=torch.int32, device=dev)
+    page = 64
+    gpage = torch.arange(s // page, dtype=torch.int32, device=dev) * SP
+    slab = (gpage[:, None] * page + torch.arange(
+        page, dtype=torch.int32, device=dev)[None]).reshape(-1)
+    cases = {"own_diagonal": (qp, qp), "own_earlier": (qp, qp - s),
+             "history_slab": (qp, torch.where(
+                 slab < half, slab, torch.full_like(slab, INT32_MAX)))}
+    # a fixed warm-up of every case, then two passes.  ``ms`` is the
+    # per-call event time with the card held busy (``event_ms``): it reads
+    # the same fresh and after the serve phase, where the profiler's sum
+    # reads ~0.6x of it (PERF.md section 6), so the profiler's is only
+    # printed beside it, as is the SM clock read while the card spins
+    for _ in range(200):
+        for a, b in cases.values():
+            flash_attention(q, k, v, a, b)
+    torch.cuda.synchronize()
+    out = {name: {"queries": s, "keys": s, "ms_passes": [],
+                  "profiler_ms_passes": []} for name in cases}
+    clocks = []
+    for _ in range(2):
+        for name, (a, b) in cases.items():
+            fn = (lambda a=a, b=b: flash_attention(q, k, v, a, b))
+            out[name]["ms_passes"].append(event_ms(fn, cold=False))
+            out[name]["profiler_ms_passes"].append(time_ms(fn)[0])
+        torch.cuda._sleep(1_000_000_000)            # ~0.5 s of spinning
+        clocks.append(_sm_clock())
+        torch.cuda.synchronize()
+    for name, (a, b) in cases.items():
+        pairs = int((b[None, :] <= a[:, None]).sum())
+        nbytes = (2 * s * H * D + 2 * s * KVH * D) * 2 + H * s * 4 + 2 * s * 4
+        bms, by = bound_ms(nbytes, 4 * H * D * pairs, "bfloat16")
+        plain = (lambda a=a, b=b: flash_attention_plain(q, k, v, a, b))
+        out[name].update(visible_pairs=pairs, ms=out[name]["ms_passes"][-1],
+                         plain_ms=event_ms(plain, cold=False, n=3),
+                         bound_ms=bms, bound_by=by)
+    out["sm_clock_mhz_busy"] = clocks
+    return out
+
+
+def _sm_clock() -> str:
+    """The card's SM clock and its maximum, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+# Two numerically different bf16 paths through 32 layers give top scores
+# (near 0.79, where a bf16 ulp is 2^-8) that differ by up to 3 ulps
+# (0.0117 on an H100, between the unsharded, sharded and plain rows:
+# PERF.md section 6), and these seeded weights leave many steps with two
+# tokens closer than that: there greedy streams may part.  A step where a
+# path's argmax is not the stream's token is accepted as a tie when every
+# path scores the two tokens within TIE_TOL = 2^-5, 8 ulps: over twice
+# that difference.
+TIE_TOL = 2 ** -5
+
+
+def _stream_ties(cfg, params, ctxs: dict, prompts, want: dict, got: dict):
+    """Teacher-force each request's whole stream in ``want`` on every path
+    (``ctxs``: name -> context) and hold every step: each path's argmax
+    must be ``want``'s token, or the step a tie, every path scoring the two
+    tokens within TIE_TOL.  The step where ``got``'s stream first parts
+    from ``want``'s is held to the same rule with ``got``'s token; after
+    it ``got`` runs on another prefix, and the paths' rows on ``want``'s
+    prefix are what is checked.  Returns per request: the steps checked,
+    the first parting, each step and token other than ``want``'s (each
+    path's score gap, ``tie``), and the largest row difference between
+    each two paths."""
+    import itertools
+    import torch
+    out = {}
+    for rid, a in want.items():
+        b = got[rid]
+        part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        rows = {n: torch.stack(_replay(cfg, params, c, prompts[rid],
+                                       a[:-1])[1:])
+                for n, c in ctxs.items()}
+        others = []
+        for t, tok in enumerate(a):
+            alt = {int(r[t].argmax()) for r in rows.values()}
+            if t == part:
+                alt.add(b[t])
+            for g in sorted(alt - {tok}):
+                gaps = {n: abs(float(r[t, tok] - r[t, g]))
+                        for n, r in rows.items()}
+                others.append({
+                    "step": t, "tokens": [tok, g],
+                    "argmax": [n for n, r in rows.items()
+                               if int(r[t].argmax()) == g],
+                    "engine": t == part and g == b[t], "gaps": gaps,
+                    "tie": max(gaps.values()) <= TIE_TOL})
+        out[rid] = {
+            "steps": len(a), "parting": part, "others": others,
+            "max_abs_err": {f"{m}-{n}": float((rows[m] - rows[n]).abs().max())
+                            for m, n in itertools.combinations(rows, 2)},
+            "top_score_err": {
+                f"{m}-{n}": float((rows[m].max(-1).values
+                                   - rows[n].max(-1).values).abs().max())
+                for m, n in itertools.combinations(rows, 2)}}
+        del rows
+        _free()
+    return out
+
+
+def phase_serve_sp() -> dict:
+    """Llama-3-8B at full width, bf16, served by the ServingEngine on a
+    4-position mesh of the one card: the smoke trace of the serve phase
+    (prompts of 512-6144 tokens, two chunks each, pages of 64, max_batch
+    4) through ring attention (chunk 1), ring-paged prefill over the
+    striped history (chunk 2) and the split-KV paged decode (ticks).  In
+    bf16 the greedy streams may part at a tie: every step of the unsharded
+    engine's streams is held on the unsharded, sharded and plain paths by
+    ``_stream_ties``.  The longest
+    request's replay holds each K1/K3 call to its plain version with
+    planted faults, and its logits to the plain path's.  Returns the
+    launch counts of the sharded run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.sharding import make_context
+    cfg = get_config("llama3-8b")
+    ctx = make_context("cuda")
+    sp_ctx = _sp_context()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=ctx.device)
+    torch.cuda.synchronize()
+    emit(phase="serve_sp", model=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, d_model=cfg.d_model,
+         params=count_params(params), positions=SP,
+         mesh=repr(sp_ctx.mesh), init_s=round(time.perf_counter() - t0, 2))
+    rng = np.random.default_rng(0)
+    lens = [512, 2048, 4096, 6144]
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+               for L in lens]
+    out_len = 16
+    runs = {}
+    for name, c in (("unsharded", ctx), ("sharded", sp_ctx)):
+        _free()
+        _reset_counts()
+        t0 = time.perf_counter()
+        eng = _serve(cfg, params, prompts, c, out_len, max_seq=6208,
+                     prefill_pool_blocks=256, host_pool_blocks=128,
+                     profile_ops=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {"launches": _read_counts(),
+                      "outputs": dict(eng.outputs),
+                      "plans": {rid: r.chunk_plan
+                                for rid, r in eng.reqs.items()},
+                      "kv_shards": (eng.pkv.kv_shards,
+                                    eng.dstates[0].kv_shards),
+                      "chunk_device_us": _hist(
+                          eng, "op_device_us/prefill_chunk"),
+                      "tick_device_us": _hist(eng,
+                                              "op_device_us/decode_tick")}
+        emit(phase="serve_sp", model=cfg.name, engine=name,
+             wall_s=round(wall, 2), **{k: v for k, v in runs[name].items()
+                                       if k not in ("outputs", "plans")},
+             outputs={str(k): v for k, v in eng.outputs.items()})
+        del eng
+    sh, flat = runs["sharded"], runs["unsharded"]
+    counts = sh["launches"]
+    _check_launches(counts, "serve_sp")
+    check(sh["kv_shards"] == (SP, SP),
+          f"serve_sp: pools striped {sh['kv_shards']}, not {SP} ways")
+    check(all(len(p) == 2 for p in sh["plans"].values()),
+          f"serve_sp: every request must run two chunks: {sh['plans']}")
+    emit(phase="serve_sp", model=cfg.name,
+         device_ms={f"{op}_mean": {
+             k: r[f"{op}_device_us"]["mean"] / 1e3
+             for k, r in runs.items() if r[f"{op}_device_us"]}
+             for op in ("chunk", "tick")},
+         tokens_identical={str(r): sh["outputs"][r] == t
+                           for r, t in flat["outputs"].items()})
+    # in bf16 every step of every stream is held: the paths agree on the
+    # unsharded engine's token or the step is a tie (TIE_TOL); exact token
+    # identity is held in fp32 (phase tokens)
+    ties = _stream_ties(cfg, params, {"unsharded": ctx, "sharded": sp_ctx,
+                                      "plain": ctx.with_(impl="ref")},
+                        prompts, flat["outputs"], sh["outputs"])
+    emit(phase="serve_sp", model=cfg.name, stream_ties=ties,
+         tie_tol=TIE_TOL, steps_checked=sum(r["steps"] for r in ties.values()))
+    check(all(o["tie"] for r in ties.values() for o in r["others"]),
+          "serve_sp: a path's greedy token differs from the unsharded "
+          f"engine's at a step that is no tie: {ties}")
+
+    # the longest request replayed on the mesh, each K1/K3 call held to its
+    # plain version, and its logits to the plain (unsharded) path's
+    rid = len(lens) - 1
+    first = flat["outputs"][rid][0]
+    _free()
+    want_calls, keep = sp_gate_plan(cfg.n_layers)
+    got, gate = attn_call_gate(
+        lambda: _replay(cfg, params, sp_ctx, prompts[rid], [first]),
+        want_calls, keep)
+    per = {"chunk1_K3": SP * SP * cfg.n_layers,
+           "chunk2_K3": 2 * SP * SP * cfg.n_layers,
+           "tick_K1": SP * cfg.n_layers}
+    L = lens[rid]
+    pages = -(-(L + 1) // 64)
+    emit(phase="serve_sp", model=cfg.name, attention_calls=gate,
+         tol=KERNEL_TOL["bfloat16"], launches_per_step=per,
+         shard_shapes={"K3_queries": L // 2 // SP,
+                       "K3_own_keys": L // 2 // SP,
+                       "K3_slab_keys": L // 2 // SP,
+                       "K1_table_cols": -(-pages // SP)})
+    check(gate["ok"], "serve_sp: a K1/K3 call of the sharded replay "
+          f"disagrees with its plain version, or a planted fault passed: "
+          f"{gate}")
+    check(int(torch.argmax(got[1])) == first,
+          "serve_sp: the sharded replay disagrees with the engine's first "
+          "token")
+    want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid],
+                   [first])
+    _logits_vs_plain("serve_sp", ("chunk1", "chunk2_history", "decode_tick"),
+                     got, want, LOGIT_TOL["llama3-8b"])
+    del got, want
+    _free()
+    emit(phase="serve_sp", model=cfg.name,
+         k3_ring_step=_k3_ring_step_times(cfg, L))
+    del params
+    _free()
+    return counts
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1696,9 +2011,30 @@ def _tokens_engine(arch: str, path: str, seed: int, lens, out_len: int):
     return cfg, params, ctx, prompts, outs["cuda"]
 
 
+def _tokens_sharded(cfg, params, prompts, outs, out_len: int) -> None:
+    """The same fp32 trace on the ``SP``-position mesh engine: chunks of
+    150 and 1250 tokens do not divide over the ring and take the striped
+    history's gather fallback (K3 over slab ++ chunk), the others ring;
+    the tokens must be the unsharded kernel and plain engines'."""
+    _reset_counts()
+    eng = _serve(cfg, params, prompts, _sp_context(), out_len,
+                 max_seq=4096, prefill_pool_blocks=160, host_pool_blocks=64)
+    counts = _read_counts()
+    _check_launches(counts, "serve_sp")
+    same = dict(eng.outputs) == outs
+    emit(phase="tokens", model=cfg.name, impl="cuda", positions=SP,
+         launches=counts, identical=same,
+         outputs={str(k): v for k, v in eng.outputs.items()})
+    check(same, f"{cfg.name}: fp32 greedy tokens of the {SP}-position "
+          "mesh engine differ from the unsharded engines'")
+    del eng
+    _free()
+
+
 def phase_tokens():
     cfg, params, ctx, prompts, outs = _tokens_engine(
         "llama3-8b", "serve_llama", 1, (300, 1000, 2500, 4000), 8)
+    _tokens_sharded(cfg, params, prompts, outs, 8)
     # Llama's dense path (K3 + K4) on one of the same prompts gives the
     # paged engine's tokens (K1-K3)
     rid = 2
@@ -1989,11 +2325,11 @@ def _profile_whisper() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
-                    choices=["device", "kernels", "serve", "dense",
-                             "whisper", "tokens", "profile"])
+                    choices=["device", "kernels", "serve", "serve_sp",
+                             "dense", "whisper", "tokens", "profile"])
     args = ap.parse_args(argv)
-    phases = args.only or ["device", "kernels", "serve", "dense", "whisper",
-                           "tokens"]
+    phases = args.only or ["device", "kernels", "serve", "serve_sp", "dense",
+                           "whisper", "tokens"]
 
     import torch
     if not torch.cuda.is_available():
@@ -2007,6 +2343,8 @@ def main(argv=None) -> int:
     smi = phase_device()
     rows = phase_kernels() if "kernels" in phases else {}
     by_path = phase_serve() if "serve" in phases else {}
+    if "serve_sp" in phases:
+        by_path["serve_sp"] = phase_serve_sp()
     if "dense" in phases:
         by_path["dense"] = phase_dense()
     if "whisper" in phases:

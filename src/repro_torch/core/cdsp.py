@@ -14,19 +14,29 @@ chunk's own KV into pages afterwards.  The dense ``prefill_chunk`` /
 
 An encoder-decoder (Whisper) prefills its decoder prompt as one chunk
 with the encoder frames (reference cdsp.py:225-231); each layer's cross KV
-rides in the history as ``"cross"`` and on into the decode caches.  Only
-the single-device path is ported: sharded pools belong to a later slice.
+rides in the history as ``"cross"`` and on into the decode caches.
+
+On a mesh (``ctx.sp_axis``) a chunk runs ring attention over its SP
+positions.  Under the serving engine the prefill pool stripes over the
+same axis and each shard's history pages rotate through the ring
+(``pages_history_view`` builds the per-shard tables).  The dense
+``prefill_chunk`` path keeps its history whole on position 0's device;
+the ring splits it evenly over the chunk's positions at every layer,
+which is the reference's "cache balancing" reshard when the next chunk
+runs on a larger group.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import ExecContext
 from repro_torch.models.transformer import forward
+from repro_torch.serving.cache_manager import shard_block_table
 
 
 def _append_history(cfg: ModelConfig, history: Optional[dict],
@@ -109,10 +119,16 @@ def pages_history_view(cfg: ModelConfig, pools: dict, block_table,
     covering its first ``hist_len`` tokens in natural order.  Leaves carry
     the leading n_blocks axis; the per-block slice is the paged history
     {"k_pool","v_pool","block_table","len"} the attention block consumes.
-    ``active_shards`` belongs to sharded pools, which the port does not
-    have, and must stay None."""
-    if active_shards is not None:
-        raise NotImplementedError("sharded pools are not ported yet")
+
+    A sequence-parallel sharded pool (PagedKVCache with ``kv_shards > 1``,
+    leaves that are lists of per-shard (nb, blocks_per_shard + 1, page,
+    KVH, D) tensors) gets the per-shard local tables (nb, n_shards, B,
+    npg_local) that the ring-paged prefill consumes
+    (core/ring_attention.ring_paged_prefill), built from the global
+    striped ids on position 0's device.  ``active_shards`` narrows the
+    stripe after an elastic restripe: the tables keep one row per
+    physical shard, column j of row s meaning logical page ``j *
+    active_shards + s``, and rows past the live stripe are all-scratch."""
     out: dict = {}
     nb = cfg.n_blocks
     bt_b = ln_b = None
@@ -122,12 +138,18 @@ def pages_history_view(cfg: ModelConfig, pools: dict, block_table,
         if spec.mixer == "attn":
             p = pools[key]
             if bt_b is None:
-                dev = p["k"].device
-                bt = torch.as_tensor(block_table, dtype=torch.int32,
-                                     device=dev)
-                if bt.dim() == 1:
+                bt = np.asarray(block_table, np.int32)
+                if bt.ndim == 1:
                     bt = bt[None]                          # (B=1, npg)
                 B_ = bt.shape[0]
+                if isinstance(p["k"], list):               # striped pool
+                    n_sh, bps = len(p["k"]), p["k"][0].shape[1] - 1
+                    act = min(active_shards or n_sh, n_sh)
+                    bt = shard_block_table(bt, act, bps, n_slots=n_sh)
+                    dev = p["k"][0].device
+                else:
+                    dev = p["k"].device
+                bt = torch.as_tensor(bt, device=dev)
                 ln = torch.as_tensor(hist_len, dtype=torch.int32,
                                      device=dev).reshape(-1).expand(B_)
                 bt_b = bt[None].expand((nb,) + tuple(bt.shape))

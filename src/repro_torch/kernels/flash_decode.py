@@ -20,6 +20,13 @@ versions, and the page helpers of the serving engine's block pools.
   are indexing, not kernels: the reference runs them as XLA scatters on
   donated buffers, here they write the live pool tensors in place.  Pools
   carry the layer axis first, (nb, n_pages, page, KVH, D).
+* Their sharded twins (``shard_*``) run over a striped pool: a list of
+  per-shard pools (nb, blocks_per_shard + 1, page, KVH, D), each on its
+  mesh position's device, addressed by per-shard local page ids.  Each
+  shard's pages stay on its position; local id ``blocks_per_shard`` is
+  the shard's scratch page, and routing a payload there says "not
+  mine".  The reference's are shard_map bodies (its flash_decode.py
+  sharded page ops); here one process loops over the shards.
 """
 
 from __future__ import annotations
@@ -73,6 +80,71 @@ def copy_kv_block_within(pool: torch.Tensor, src_block: int,
                          dst_block: int) -> None:
     """Copy one page onto another in the same pool (copy-on-write split)."""
     pool[:, dst_block] = pool[:, src_block]
+
+
+# ----------------------------------------------------- sharded page helpers
+def _local_ids(ids, s: int, device) -> torch.Tensor:
+    """Row ``s`` of a per-shard id grid, as indices on ``device``."""
+    return torch.as_tensor(ids[s], device=device).long()
+
+
+def shard_scatter_kv_chunk(pools, local_pages, seq_kv: torch.Tensor,
+                           positions: torch.Tensor, *,
+                           active: Optional[int] = None) -> None:
+    """Sharded ``scatter_kv_chunk``: ``local_pages`` (n_shards, npg_local)
+    holds, in row s column j, the local id of the allocation's logical
+    page ``j * active + s``.  Every shard sees the whole chunk's KV (nb,
+    L, KVH, D) and writes only the tokens whose page it owns (page p
+    belongs to shard ``p % active``); the rest go to its scratch page.
+    ``active`` (default: every shard) is the live stripe width — shards
+    past it own nothing."""
+    n_act = active or len(pools)
+    for s, pool in enumerate(pools):
+        dev = pool.device
+        page, scratch = pool.shape[2], pool.shape[1] - 1
+        pos = positions.to(dev).long()
+        pg = pos // page
+        phys = torch.where((pg % n_act) == s,
+                           _local_ids(local_pages, s, dev)[pg // n_act],
+                           torch.full_like(pg, scratch))
+        pool[:, phys, pos % page] = seq_kv.to(dev, pool.dtype)
+
+
+def shard_copy_kv_blocks(dst_pools, src_pools, src_local,
+                         dst_local) -> None:
+    """Sharded ``copy_kv_blocks``: per-shard (m,) local id lists, each
+    pair on one shard (stripe alignment) — a position-local page copy
+    (admission between sharded pools)."""
+    for s, (dst, src) in enumerate(zip(dst_pools, src_pools)):
+        dst[:, _local_ids(dst_local, s, dst.device)] = src[
+            :, _local_ids(src_local, s, src.device)].to(dst.device,
+                                                        dst.dtype)
+
+
+def shard_scatter_kv_blocks(pools, dst_local, pages: torch.Tensor) -> None:
+    """Sharded ``scatter_kv_blocks``: ``pages`` (nb, n_shards, m, page,
+    KVH, D) grouped per destination shard (host swap-in or promotion
+    payloads, or pages regrouped from an unsharded pool)."""
+    for s, pool in enumerate(pools):
+        pool[:, _local_ids(dst_local, s, pool.device)] = pages[:, s].to(
+            pool.device, pool.dtype)
+
+
+def shard_gather_kv_blocks(pools, local, device) -> torch.Tensor:
+    """Sharded ``gather_kv_blocks``: each shard reads its own pages; the
+    result (nb, n_shards, m, page, KVH, D) on ``device``, in per-shard
+    grouping order (the caller reassembles logical order)."""
+    return torch.stack([pool[:, _local_ids(local, s, pool.device)]
+                        .to(device) for s, pool in enumerate(pools)],
+                       dim=1)
+
+
+def shard_copy_kv_block_within(pools, src_local, dst_local) -> None:
+    """Sharded ``copy_kv_block_within``: per-shard (scalar) local ids —
+    the owning shard copies the copy-on-write page, every other shard
+    copies its scratch page onto itself."""
+    for s, pool in enumerate(pools):
+        pool[:, int(dst_local[s])] = pool[:, int(src_local[s])]
 
 
 def fused_append_attend(k_pool: torch.Tensor, v_pool: torch.Tensor,

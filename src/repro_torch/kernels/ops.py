@@ -22,6 +22,8 @@ from repro_torch.kernels.flash_decode import (flash_decode,
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 IMPLS = (None, "ref")
+# position of a dead key: past every query, so the causal mask retires it
+INT32_MAX = 2 ** 31 - 1
 
 
 def use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
@@ -73,8 +75,29 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     ``append_page``/``append_slot`` (B,), the new token's K/V is written
     into the pools in place and the row attends over ``lengths + 1``; the
     return value is then ``(o[, lse], k_pool, v_pool)`` — the same pool
-    tensors, so callers holding them see the write."""
+    tensors, so callers holding them see the write.
+
+    A sequence-parallel sharded pool (3-dim block_tables (n_shards, B,
+    npg_local) over per-shard pools) is read through its logical-order
+    view (``ref.sharded_pool_view``): K4 over that view on the card, the
+    plain decode elsewhere.  The engine's sharded decode does not come
+    here: it runs the split-KV island
+    (core/ring_attention.sharded_paged_decode), whose per-shard partials
+    call this function with shard-local 2-dim tables and ``page_pos``."""
     kernel = use_kernel(q, impl)
+    if block_tables.dim() == 3:
+        if k_new is not None or page_pos is not None:
+            raise ValueError("the fused append and page_pos need a "
+                             "shard-local 2-dim table")
+        if not kernel:
+            return _ref.paged_decode_attention_ref(
+                q, k_pool, v_pool, block_tables, lengths, window=window,
+                softmax_scale=softmax_scale, with_lse=with_lse)
+        o, lse = flash_decode(
+            q, _ref.sharded_pool_view(k_pool, block_tables),
+            _ref.sharded_pool_view(v_pool, block_tables), lengths,
+            window=window, softmax_scale=softmax_scale)
+        return (o, lse) if with_lse else o
     if k_new is not None:
         if kernel:
             o, lse = paged_flash_decode(
@@ -112,12 +135,38 @@ def paged_prefill_attention(q, k_new, v_new, q_pos, kv_pos_new,
     On the card this is K2 over the history pages, K3 over the chunk's own
     KV, and ``merge_partials`` by LSE — numerically the single-softmax
     result.  Elsewhere the gather version ``ref.paged_prefill_attention_ref``
-    runs, as in the reference."""
+    runs, as in the reference.
+
+    A sequence-parallel sharded pool (3-dim block_tables) is the fallback
+    for chunks whose length does not divide over the ring: on the card
+    the logical-order history slab is gathered and K3 runs once over
+    [slab ++ chunk] with their positions, the slab's slots at or past
+    ``hist_len`` pushed to INT32_MAX, where the causal mask retires them
+    (so this branch is causal only)."""
     if not use_kernel(q, impl):
         return _ref.paged_prefill_attention_ref(
             q, k_new, v_new, q_pos, kv_pos_new, k_pool, v_pool,
             block_tables, hist_len, causal=causal, window=window,
             softmax_scale=softmax_scale)
+    if block_tables.dim() == 3:
+        if not causal:
+            raise ValueError("paged_prefill_attention over a sharded pool "
+                             "is causal only")
+        B, Sq = q.shape[:2]
+        hk = _ref.sharded_pool_view(k_pool, block_tables)
+        hv = _ref.sharded_pool_view(v_pool, block_tables)
+        S_h = hk.shape[1]
+        hpos = torch.arange(S_h, dtype=torch.int32, device=q.device)[None]
+        hpos = torch.where(hpos < hist_len[:, None].to(torch.int32), hpos,
+                           torch.full_like(hpos, INT32_MAX))
+        kv_pos = torch.cat([hpos.expand(B, S_h),
+                            _ref._broadcast_pos(kv_pos_new, B)], dim=1)
+        out, _ = flash_attention(
+            q, torch.cat([hk.to(k_new.dtype), k_new], dim=1),
+            torch.cat([hv.to(v_new.dtype), v_new], dim=1), q_pos,
+            kv_pos.to(torch.int32), causal=True, window=window,
+            softmax_scale=softmax_scale)
+        return out
     o_h, lse_h = paged_flash_prefill(
         q, k_pool, v_pool, block_tables, hist_len, q_pos, causal=causal,
         window=window, softmax_scale=softmax_scale)

@@ -124,6 +124,26 @@ def decode_attention_ref(
     return res[:, 0]
 
 
+def sharded_pool_view(pool, tables: torch.Tensor) -> torch.Tensor:
+    """Dense logical-order view of a *sequence-parallel sharded* paged
+    pool (serving/cache_manager.PagedKVCache with ``kv_shards > 1``).
+
+    pool: the per-shard pools, a sequence of (blocks_per_shard + 1, page,
+    KVH, D) tensors on their positions' devices (or one stacked
+    (n_shards, ...) tensor); tables: (n_shards, B, npg_local) local page
+    ids, where row s column j holds the sequence's logical page ``j *
+    n_shards + s`` (striped layout).  Returns (B, npg_local * n_shards *
+    page, KVH, D) on the tables' device, with tokens at their logical flat
+    positions — scratch-padded table entries land at positions at/past
+    the valid length, so the usual ``idx < length`` masking covers
+    them."""
+    n, B, npg = tables.shape
+    g = torch.stack([pool[s][tables[s].to(pool[s].device).long()]
+                     .to(tables.device) for s in range(n)],
+                    dim=2)                          # (B, npg, n, page, ...)
+    return g.reshape(B, npg * n * g.shape[3], *g.shape[4:])
+
+
 def paged_decode_attention_ref(
     q: torch.Tensor,                     # (B, H, D)
     k_pool: torch.Tensor,                # (n_pages, page, KVH, D)
@@ -140,9 +160,18 @@ def paged_decode_attention_ref(
     into a dense per-row view sized to the table width, then attend.
 
     ``page_pos`` gives each table column's first-token logical position
-    (default: flat table order); length and window masks follow it."""
-    if block_tables.dim() != 2:
-        raise ValueError("the port serves 2-dim (unsharded) block tables")
+    (default: flat table order); length and window masks follow it.
+
+    Also accepts the sequence-parallel sharded layout (3-dim tables
+    (n_shards, B, npg_local) over per-shard pools): the striped pages are
+    gathered back into logical order first (``sharded_pool_view``)."""
+    if block_tables.dim() == 3:
+        if page_pos is not None:
+            raise ValueError("page_pos applies to shard-local tables")
+        return decode_attention_ref(
+            q, sharded_pool_view(k_pool, block_tables),
+            sharded_pool_view(v_pool, block_tables), lengths,
+            window=window, softmax_scale=softmax_scale, with_lse=with_lse)
     B, npg = block_tables.shape
     page = k_pool.shape[1]
     idx = block_tables.long()
@@ -186,16 +215,20 @@ def paged_prefill_attention_ref(
 
     History KV sits in the pool in natural token order, so a history key's
     position is its flat table index and it is valid while
-    ``index < hist_len``."""
-    if block_tables.dim() != 2:
-        raise ValueError("the port serves 2-dim (unsharded) block tables")
+    ``index < hist_len``.  A sharded pool (3-dim tables) is read through
+    its logical-order view (``sharded_pool_view``)."""
     B, Sq = q.shape[:2]
-    npg = block_tables.shape[1]
-    page = k_pool.shape[1]
-    S_h = npg * page
-    idx = block_tables.long()
-    hk = k_pool[idx].reshape(B, S_h, *k_pool.shape[2:])
-    hv = v_pool[idx].reshape(B, S_h, *v_pool.shape[2:])
+    if block_tables.dim() == 3:
+        hk = sharded_pool_view(k_pool, block_tables)
+        hv = sharded_pool_view(v_pool, block_tables)
+        S_h = hk.shape[1]
+    else:
+        npg = block_tables.shape[1]
+        page = k_pool.shape[1]
+        S_h = npg * page
+        idx = block_tables.long()
+        hk = k_pool[idx].reshape(B, S_h, *k_pool.shape[2:])
+        hv = v_pool[idx].reshape(B, S_h, *v_pool.shape[2:])
     hist_pos = torch.arange(S_h, dtype=torch.int32, device=q.device)
     k = torch.cat([hk.to(k_new.dtype), k_new], dim=1)
     v = torch.cat([hv.to(v_new.dtype), v_new], dim=1)

@@ -12,6 +12,17 @@ Single-device branches of the reference (models/attention.py):
       of at least 4 windows (``ctx.window_slice``);
   encode — an encoder's self-attention: the train branch with no cache
       (Whisper's encoder, non-causal, K3 on the card).
+On a mesh (reference models/attention.py:98-175, 250-320): a chunk whose
+length divides over ``ctx.sp_axis`` runs ring attention
+(core/ring_attention, K3 per position and ring step) — over its own KV
+and any dense history, or, with a striped paged history (3-dim tables),
+``ring_paged_prefill`` with each shard's history pages rotating through
+the ring; other chunks over a striped history take the gather fallback
+of ``ops.paged_prefill_attention``.  A striped paged decode cache runs
+the split-KV island ``sharded_paged_decode`` (K1 per shard, the append
+on the owning shard).  An unsharded pool under an active split or ring
+axis raises ``ValueError``: the layouts must agree.  Dense decode under
+``ctx.kv_split_axis`` (``split_kv_decode``) is a later slice.
 ``cross_attention`` is the encoder-decoder's cross attention over the
 encoder's K/V, with the ``x_``-prefixed weights: "cross" in prefill and
 train (K3 on the card), "cross_decode" in a decode tick (K4 on the card).
@@ -23,6 +34,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.ring_attention import (ring_attention,
+                                             ring_paged_prefill,
+                                             sharded_paged_decode)
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
@@ -95,20 +109,45 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     positions: (B, S) int32.  decode: x (B, 1, d), cache_len (B,), cache
     either paged {"k","v","block_table"} (pools (n_pages, page, KVH, D),
     table (B, npg)) — written in place by the fused tick — or dense
-    {"k","v"} (B, S_max, KVH, D).  history (CDSP chunked prefill): paged
-    {"k_pool","v_pool","block_table","len"}, or dense {"k","v","pos"}."""
+    {"k","v"} (B, S_max, KVH, D).  A *sharded* paged cache has per-shard
+    pool lists (blocks_per_shard + 1, page, KVH, D) and tables (n_shards,
+    B, npg_local); the owning shard's pool is written in place.  history
+    (CDSP chunked prefill): paged {"k_pool","v_pool","block_table","len"}
+    (pools and tables sharded likewise under ring attention), or dense
+    {"k","v","pos"}."""
     B, S, _ = x.shape
     q, k, v = qkv_proj(x, p, cfg)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
     pos2d = positions[0] if positions.dim() == 3 else positions
+    split_n = (ctx.axis_size(ctx.kv_split_axis)
+               if ctx.kv_split_axis is not None else 1)
 
     if mode == "decode" and cache is not None and "block_table" in cache:
         assert cache_len is not None
         bt = cache["block_table"]
-        if bt.dim() != 2:
-            raise NotImplementedError("sharded paged pools need a mesh; "
-                                      "the port runs on one device")
+        if bt.dim() == 3:
+            # split-KV paged decode island: the append lands on the shard
+            # owning the target page (fused with its attend), each shard
+            # attends its own pages, partials merge by LSE
+            if ctx.kv_split_axis is None or ctx.mesh is None:
+                raise ValueError("a sharded paged cache needs "
+                                 "ctx.kv_split_axis and a mesh")
+            o, k_pool, v_pool = sharded_paged_decode(
+                q[:, 0], cache["k"], cache["v"], bt, cache_len,
+                mesh=ctx.mesh, split_axis=ctx.kv_split_axis, window=window,
+                impl=ctx.impl, k_new=k[:, 0], v_new=v[:, 0],
+                active_shards=ctx.active_pool_shards)
+            return out_proj(o[:, None], p), {"k": k_pool, "v": v_pool,
+                                             "block_table": bt}
+        if split_n > 1:
+            raise ValueError(
+                "paged decode with ExecContext.kv_split_axis="
+                f"{ctx.kv_split_axis!r} needs the SHARDED pool layout "
+                "(per-shard pools, block_table (n_shards, B, npg_local) — "
+                "build the PagedKVCache with kv_shards > 1), got an "
+                "unsharded 2-dim block table.  Either hand over the "
+                "sharded layout or run with ctx.with_(kv_split_axis=None).")
         page = cache["k"].shape[1]
         rows = torch.arange(B, device=bt.device)
         o, k_pool, v_pool = ops.paged_decode_attention(
@@ -121,6 +160,11 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
     if mode == "decode":
         assert cache is not None and cache_len is not None
+        if split_n > 1:
+            raise NotImplementedError(
+                "dense decode under ExecContext.kv_split_axis "
+                "(split_kv_decode, K4 per shard) is a later slice of the "
+                "port")
         rows = torch.arange(B, device=x.device)
         S_max = cache["k"].shape[1]
         ring = ctx.ring_cache and window is not None and S_max <= window
@@ -153,14 +197,36 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
         raise NotImplementedError(f"attention mode {mode!r}")
     k_self, v_self = k, v
     new_cache = {"k": k_self, "v": v_self} if mode == "prefill" else None
+    sp_n = (ctx.axis_size(ctx.sp_axis)
+            if ctx.sp_axis is not None and ctx.mesh is not None else 1)
     if history is not None and "block_table" in history:
-        if history["block_table"].dim() != 2:
-            raise NotImplementedError("sharded paged pools need a mesh; "
-                                      "the port runs on one device")
-        o = ops.paged_prefill_attention(
-            q, k, v, pos2d, pos2d, history["k_pool"], history["v_pool"],
-            history["block_table"], history["len"], causal=causal,
-            window=window, impl=ctx.impl)
+        bt = history["block_table"]
+        if bt.dim() == 2 and sp_n > 1:
+            raise ValueError(
+                "paged cross-chunk history under ring attention "
+                f"(ExecContext.sp_axis={ctx.sp_axis!r}) needs the SHARDED "
+                "pool layout (PagedKVCache with kv_shards > 1; block_table "
+                "(n_shards, B, npg_local)), got an unsharded 2-dim block "
+                "table.  Either hand over the sharded layout or run with "
+                "ctx.with_(sp_axis=None).")
+        if bt.dim() == 3 and sp_n > 1 and S % sp_n == 0:
+            # the chunk's queries/KV ride the ring and each shard's
+            # history pages rotate along with them
+            o = ring_paged_prefill(
+                q, k, v, pos2d, pos2d, history["k_pool"], history["v_pool"],
+                bt, history["len"], mesh=ctx.mesh, sp_axis=ctx.sp_axis,
+                causal=causal, window=window, impl=ctx.impl,
+                active_shards=ctx.active_pool_shards)
+        else:
+            # one position, or a chunk that does not divide over the
+            # ring: the gather fallback reads a striped pool through its
+            # logical-order view, over the live stripe's rows only
+            if bt.dim() == 3 and ctx.active_pool_shards:
+                bt = bt[:min(ctx.active_pool_shards, bt.shape[0])]
+            o = ops.paged_prefill_attention(
+                q, k, v, pos2d, pos2d, history["k_pool"], history["v_pool"],
+                bt, history["len"], causal=causal, window=window,
+                impl=ctx.impl)
         return out_proj(o, p), new_cache
     kv_pos = pos2d
     if history is not None:
@@ -170,6 +236,11 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
         if hpos.dim() == 1:
             hpos = hpos[None].expand(B, hpos.shape[0])
         kv_pos = torch.cat([hpos, pos2d], dim=1)
-    o = ops.attention(q, k, v, pos2d, kv_pos, causal=causal, window=window,
-                      impl=ctx.impl)
+    if sp_n > 1 and S % sp_n == 0 and k.shape[1] % sp_n == 0:
+        o = ring_attention(q, k, v, pos2d, kv_pos, mesh=ctx.mesh,
+                           sp_axis=ctx.sp_axis, causal=causal, window=window,
+                           impl=ctx.impl)
+    else:
+        o = ops.attention(q, k, v, pos2d, kv_pos, causal=causal,
+                          window=window, impl=ctx.impl)
     return out_proj(o, p), new_cache

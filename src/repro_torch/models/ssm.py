@@ -79,9 +79,10 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
                                   cache["ssm"])
         y = y[:, None]                                          # (B,1,H,P)
     else:
-        if ctx.sp_axis is not None:
-            raise NotImplementedError("the sequence-parallel SSD scan needs "
-                                      "a mesh; the port runs on one device")
+        if ctx.sp_axis is not None and ctx.mesh is not None:
+            raise NotImplementedError(
+                "the sequence-parallel SSD scan over ctx.sp_axis (sp_ssd, "
+                "K5 per position) is a later slice of the port")
         h0 = None if cache is None else cache.get("ssm")
         y, h_new = ops.ssd(xs, dt, A, Bm, Cm, h0=h0,
                            chunk=min(s.chunk_size, S), impl=ctx.impl)

@@ -46,14 +46,17 @@ corrupt live pages.  All pool writes mutate the pool tensors in place
 (kernels/flash_decode.py page helpers).
 
 In this package ``BlockManager`` is the reference's, unchanged (its striped,
-head-sharded and restripe accounting included), while ``PagedKVCache`` is
-the unsharded physical side only: the sharded layouts described below
-belong to the multi-device slice of the port.
+head-sharded and restripe accounting included).  ``PagedKVCache`` ports
+the unsharded layout and the striped one below; a sharded pool is a list
+of per-shard pools, one per mesh position, driven by this one process.
+The head-sharded layout and the live restripe are later slices of the
+port.
 
-**Sequence-parallel sharded pools** (``kv_shards > 1``): the pool grows a
-leading device axis — per layer ``(n_blocks, kv_shards, blocks_per_shard
-+ 1, block_size, KVH, D)``, placed over a mesh axis — and the
-BlockManager mirrors it with per-shard free lists.  Allocation is
+**Sequence-parallel sharded pools** (``kv_shards > 1``): the pool splits
+into one pool per position of a mesh axis — per layer a list of
+``(n_blocks, blocks_per_shard + 1, block_size, KVH, D)`` tensors, which
+stacked on axis 1 are the reference's ``(n_blocks, kv_shards, ...)`` —
+and the BlockManager mirrors it with per-shard free lists.  Allocation is
 *striped*: a request's i-th logical page always lives on shard
 ``i % kv_shards`` (its global block id satisfies ``shard_of(b) == i %
 kv_shards``), so split-KV decode attends each shard's page subset with a
@@ -62,8 +65,8 @@ contiguously-valid local view and merges partial softmaxes by LSE
 rotates each shard's history pages around the ring
 (core/ring_attention.ring_paged_prefill).  In steady state pages never
 migrate between shards: chunk scatters, admission copies, CoW splits and
-host staging all run as shard_map bodies that keep every page
-device-local (kernels/flash_decode.py sharded helpers).  Each shard
+host staging all run shard by shard and keep every page on its position
+(kernels/flash_decode.py sharded helpers).  Each shard
 carries its own scratch page (local id ``blocks_per_shard``); the global
 scratch id stays ``total_blocks``.
 
@@ -677,9 +680,20 @@ class PagedKVCache:
 
     Every write mutates the live pool tensors in place (index assignment,
     kernels/flash_decode.py page helpers; the fused decode tick writes
-    through the kernel).  A pool tensor is never rebound to a fresh one,
-    so any holder of ``pools`` sees each write.  Only the unsharded layout
-    (``kv_shards == 1``) is ported.
+    through the kernel, on a sharded pool into the owning shard's pool).
+    A pool tensor is never rebound to a fresh one, so any holder of
+    ``pools`` sees each write.
+
+    With ``kv_shards > 1`` each ``pools`` leaf is a list of per-shard
+    tensors (n_blocks, blocks_per_shard + 1, block_size, KVH, D), shard s
+    on position s of ``shard_axis`` of ``mesh`` (several positions may
+    share a card); ``torch.stack(leaf, dim=1)`` is the reference's
+    (n_blocks, kv_shards, blocks_per_shard + 1, ...) layout.  Block ids
+    handed in are still the BlockManager's *global* striped ids; this
+    class converts them to (shard, local) internally, and each page op
+    keeps every page on its shard (``flash_decode.shard_*``).  ``device``
+    is then position 0's device, where block tables and gathered pages
+    land.
     """
 
     def __init__(self, cfg, total_blocks: int, block_size: int,
@@ -688,35 +702,77 @@ class PagedKVCache:
                  head_axis: Optional[str] = None, device=None):
         import torch
         from repro_torch.models.sharding import resolve_device
-        if kv_shards != 1 or mesh is not None:
+        if head_axis is not None:
             raise NotImplementedError(
-                "sharded paged pools are not ported yet (kv_shards=1 only)")
+                "head-sharded pools (TPxSP) are a later slice of the port")
         self.cfg = cfg
         self.total_blocks = total_blocks
         self.block_size = block_size
-        self.kv_shards = 1
-        self.blocks_per_shard = total_blocks
-        self.mesh = None
-        self.shard_axis = None
+        self.kv_shards = kv_shards
+        self.mesh = mesh
+        self.shard_axis = shard_axis
         self.head_axis = None
         self.kv_head_shards = 1
         self.scratch_block = total_blocks       # global scratch id
-        self.device = resolve_device(device)     # CUDA unless asked
         self.attn_layers = [i for i, s in enumerate(cfg.pattern)
                             if s.mixer == "attn"]
         dt = getattr(torch, dtype or cfg.dtype)
         nb, kvh, dh = cfg.n_blocks, cfg.n_kv_heads, cfg.head_dim_
-        shape = (nb, total_blocks + 1, block_size, kvh, dh)
-        self.pools = {str(i): {"k": torch.zeros(shape, dtype=dt,
-                                                device=self.device),
-                               "v": torch.zeros(shape, dtype=dt,
-                                                device=self.device)}
+        if kv_shards == 1:
+            self.blocks_per_shard = total_blocks
+            self.device = resolve_device(device)     # CUDA unless asked
+            shape = (nb, total_blocks + 1, block_size, kvh, dh)
+            make = lambda: torch.zeros(shape, dtype=dt, device=self.device)
+        else:
+            if mesh is None or shard_axis is None:
+                raise ValueError("a sharded pool needs a mesh and an axis "
+                                 "to shard over")
+            if total_blocks % kv_shards:
+                raise ValueError(f"{total_blocks} blocks do not stripe "
+                                 f"over {kv_shards} shards")
+            self.shard_devices = mesh.positions(shard_axis)
+            if len(self.shard_devices) != kv_shards:
+                raise ValueError(f"axis {shard_axis!r} of {mesh} has "
+                                 f"{len(self.shard_devices)} positions, "
+                                 f"not {kv_shards}")
+            self.device = self.shard_devices[0]
+            self.blocks_per_shard = total_blocks // kv_shards
+            # one scratch page PER SHARD (local id blocks_per_shard)
+            shape = (nb, self.blocks_per_shard + 1, block_size, kvh, dh)
+            make = lambda: [torch.zeros(shape, dtype=dt, device=d)
+                            for d in self.shard_devices]
+        self.pools = {str(i): {"k": make(), "v": make()}
                       for i in self.attn_layers}
 
     def _ids(self, ids) -> "torch.Tensor":
         import torch
         return torch.as_tensor(list(ids), dtype=torch.long,
                                device=self.device)
+
+    # -------------------------------------------------- sharded id helpers
+    def _local(self, block: int) -> Tuple[int, int]:
+        """Global block id -> (shard, local page id)."""
+        if block == self.scratch_block:
+            return 0, self.blocks_per_shard
+        return divmod(block, self.blocks_per_shard)
+
+    def _group_by_shard(self, blocks: Sequence[int]
+                        ) -> Tuple[np.ndarray, List[List[int]]]:
+        """Group global ids by shard: returns (kv_shards, m_max) local ids
+        (scratch-padded) plus, per shard, the original positions of its
+        entries — so callers can route per-position payloads."""
+        n = self.kv_shards
+        local: List[List[int]] = [[] for _ in range(n)]
+        idxs: List[List[int]] = [[] for _ in range(n)]
+        for j, b in enumerate(blocks):
+            s, l = self._local(int(b))
+            local[s].append(l)
+            idxs[s].append(j)
+        m = max((len(l) for l in local), default=0) or 1
+        out = np.full((n, m), self.blocks_per_shard, np.int32)
+        for s in range(n):
+            out[s, :len(local[s])] = local[s]
+        return out, idxs
 
     # ------------------------------------------------------------- prefill
     def write_chunk(self, blocks: List[int], new_caches: dict,
@@ -725,12 +781,30 @@ class PagedKVCache:
         chunk completes.  ``new_caches`` is the chunk's forward() output
         tree (attention entries hold only this chunk's KV, (nb, 1, L, KVH,
         D)); ``positions`` the chunk's position array (1, L).  Tokens land
-        at their logical position, so pages stay in natural order."""
-        from repro_torch.kernels.flash_decode import scatter_kv_chunk
+        at their logical position, so pages stay in natural order.  On a
+        striped pool each shard writes the tokens of the pages it owns
+        under an ``active``-wide stripe (default: every shard)."""
+        from repro_torch.kernels.flash_decode import (scatter_kv_chunk,
+                                                      shard_scatter_kv_chunk)
         if not self.attn_layers:
             return
         pos2d = positions[0] if positions.dim() == 3 else positions
         pos = pos2d[0].to(self.device)
+        if self.kv_shards > 1:
+            act = active or self.kv_shards
+            if any(self._local(int(b))[0] != j % act
+                   for j, b in enumerate(blocks)):
+                raise RuntimeError(f"stripe drift: {blocks} do not stripe "
+                                   f"over {act} shards")
+            lp = shard_block_table(np.asarray(blocks, np.int32)[None], act,
+                                   self.blocks_per_shard,
+                                   n_slots=self.kv_shards)[:, 0]
+            for i in self.attn_layers:
+                ent = new_caches[str(i)]["self"]
+                for part in ("k", "v"):
+                    shard_scatter_kv_chunk(self.pools[str(i)][part], lp,
+                                           ent[part][:, 0], pos, active=act)
+            return
         blk = self._ids(blocks)
         for i in self.attn_layers:
             ent = new_caches[str(i)]["self"]
@@ -745,14 +819,37 @@ class PagedKVCache:
         (``kv_offload.HostKVPool``: swap-in, prefix promotion) or a peer
         gather (``kv_fabric`` wraps ``read_blocks`` output).  Host sources
         are sliced on the host first, so only the needed pages cross to
-        the device."""
+        the device.  Between pools striped over the same shard count the
+        copy is position-local (logical page i sits on shard ``i %
+        kv_shards`` in both); other sources are regrouped per shard."""
         from repro_torch.kernels.flash_decode import (copy_kv_blocks,
-                                                      scatter_kv_blocks)
+                                                      scatter_kv_blocks,
+                                                      shard_gather_kv_blocks)
         src_list = [int(b) for b in src_blocks]
         dst_list = [int(b) for b in dst_blocks]
         if not src_list:
             return
+        if self.kv_shards > 1:
+            self._copy_from_sharded(src, src_list, dst_list)
+            return
         dst_ids = self._ids(dst_list)
+        if getattr(src, "kv_shards", 1) > 1:
+            # sharded source -> unsharded destination: per-shard gather,
+            # reorder into logical order, scatter
+            local, idxs = src._group_by_shard(src_list)
+            m = local.shape[1]
+            flat = np.zeros(len(src_list), np.int64)
+            for s in range(src.kv_shards):
+                for t, j in enumerate(idxs[s]):
+                    flat[j] = s * m + t
+            for i in self.attn_layers:
+                for part in ("k", "v"):
+                    g = shard_gather_kv_blocks(src.pools[str(i)][part],
+                                               local, self.device)
+                    pages = g.reshape((g.shape[0], -1) + g.shape[3:])
+                    scatter_kv_blocks(self.pools[str(i)][part], dst_ids,
+                                      pages[:, self._ids(flat)])
+            return
         for i in self.attn_layers:
             for part in ("k", "v"):
                 sp = src.pools[str(i)][part]
@@ -763,13 +860,90 @@ class PagedKVCache:
                     scatter_kv_blocks(self.pools[str(i)][part], dst_ids,
                                       sp[:, src_list])
 
+    def _copy_from_sharded(self, src, src_list: List[int],
+                           dst_list: List[int]) -> None:
+        """``copy_from`` into a striped pool.  Three source layouts: a
+        pool striped over the same shard count (position-local page
+        copies), the host tier (per-shard page slices uploaded), and an
+        unsharded device pool (pages gathered, then regrouped per
+        shard)."""
+        import torch
+        from repro_torch.kernels.flash_decode import (gather_kv_blocks,
+                                                      shard_copy_kv_blocks,
+                                                      shard_scatter_kv_blocks)
+        n = self.kv_shards
+        dst_local, dst_idxs = self._group_by_shard(dst_list)
+        m = dst_local.shape[1]
+        if getattr(src, "kv_shards", 1) > 1:
+            if src.kv_shards != n:
+                raise ValueError(
+                    f"cannot copy pages between pools sharded {src.kv_shards}"
+                    f"-way and {n}-way: stripe layouts do not line up")
+            # stripe alignment makes every pair same-shard: regroup the
+            # src ids by the DST grouping and check the shards agree
+            # (padding slots copy the source's scratch page onto ours)
+            src_local = np.full((n, m), src.blocks_per_shard, np.int32)
+            for s in range(n):
+                for t, j in enumerate(dst_idxs[s]):
+                    ss, sl = src._local(src_list[j])
+                    if ss != s:
+                        raise RuntimeError("cross-shard page copy "
+                                           "(stripe drift)")
+                    src_local[s, t] = sl
+            for i in self.attn_layers:
+                for part in ("k", "v"):
+                    shard_copy_kv_blocks(self.pools[str(i)][part],
+                                         src.pools[str(i)][part],
+                                         src_local, dst_local)
+            return
+        # host tier or unsharded device pool: per-shard payloads
+        # (nb, n, m, page, KVH, D) in dst grouping order; padding slots
+        # carry the first page onto the shard's scratch page (harmless)
+        idx = np.zeros((n, m), np.int64)
+        for s in range(n):
+            idx[s, :len(dst_idxs[s])] = dst_idxs[s]
+        device_src = isinstance(src, PagedKVCache)
+        for i in self.attn_layers:
+            for part in ("k", "v"):
+                sp = src.pools[str(i)][part]
+                if device_src:
+                    g = gather_kv_blocks(sp, src._ids(src_list))
+                    pages = g[:, torch.as_tensor(idx, device=g.device)]
+                else:
+                    pages = sp[:, [src_list[j] for j in idx.reshape(-1)]]
+                    pages = pages.reshape((pages.shape[0], n, m)
+                                          + pages.shape[2:])
+                shard_scatter_kv_blocks(self.pools[str(i)][part], dst_local,
+                                        pages)
+
     def read_blocks(self, blocks: Iterable[int]) -> Dict[str, dict]:
         """Gather whole pages into host (CPU) tensors — the staging read
         of a swap-out or host demotion.  Layout mirrors the pools:
         {layer: {"k"/"v": (nb, n, page, KVH, D)}}, consumable by
-        ``kv_offload.HostKVPool.store``."""
-        from repro_torch.kernels.flash_decode import gather_kv_blocks
-        ids = self._ids(blocks)
+        ``kv_offload.HostKVPool.store``.  A striped pool gathers per shard
+        and the pages are put back in logical order on the host."""
+        import torch
+        from repro_torch.kernels.flash_decode import (gather_kv_blocks,
+                                                      shard_gather_kv_blocks)
+        ids_list = [int(b) for b in blocks]
+        if self.kv_shards > 1:
+            local, idxs = self._group_by_shard(ids_list)
+            order = np.zeros(len(ids_list), np.int64)
+            for s in range(self.kv_shards):
+                for t, j in enumerate(idxs[s]):
+                    order[j] = s * local.shape[1] + t
+            order = torch.as_tensor(order)
+            out = {}
+            for i in self.attn_layers:
+                ent = {}
+                for part in ("k", "v"):
+                    g = shard_gather_kv_blocks(self.pools[str(i)][part],
+                                               local, torch.device("cpu"))
+                    ent[part] = g.reshape((g.shape[0], -1)
+                                          + g.shape[3:])[:, order]
+                out[str(i)] = ent
+            return out
+        ids = self._ids(ids_list)
         return {str(i): {part: gather_kv_blocks(
                     self.pools[str(i)][part], ids).cpu()
                 for part in ("k", "v")}
@@ -777,24 +951,46 @@ class PagedKVCache:
 
     def copy_within(self, src_block: int, dst_block: int) -> None:
         """Duplicate one page inside the pool — the physical half of a
-        copy-on-write split (BlockManager.ensure_writable)."""
-        from repro_torch.kernels.flash_decode import copy_kv_block_within
+        copy-on-write split (BlockManager.ensure_writable).  On a striped
+        pool source and destination sit on one shard (the replacement
+        comes from the same stripe position)."""
+        from repro_torch.kernels.flash_decode import (
+            copy_kv_block_within, shard_copy_kv_block_within)
+        if self.kv_shards > 1:
+            ss, sl = self._local(int(src_block))
+            ds, dl = self._local(int(dst_block))
+            if ss != ds:
+                raise RuntimeError("a copy-on-write split must stay on one "
+                                   "shard")
+            src = np.full((self.kv_shards,), self.blocks_per_shard, np.int32)
+            dst = src.copy()
+            src[ss], dst[ss] = sl, dl
+            for i in self.attn_layers:
+                for part in ("k", "v"):
+                    shard_copy_kv_block_within(self.pools[str(i)][part],
+                                               src, dst)
+            return
         for i in self.attn_layers:
             for part in ("k", "v"):
                 copy_kv_block_within(self.pools[str(i)][part],
                                      int(src_block), int(dst_block))
 
     def restripe(self, pairs: Sequence[Tuple[int, int]]) -> None:
-        """Live stripe resizes move pages across shards; an unsharded pool
-        has none to move."""
+        """Move the pages of a live stripe resize to their new shards
+        (``BlockManager.restripe``'s pairs).  An unsharded pool has none
+        to move; the cross-shard move itself (the reference's
+        ``shard_restripe_kv_blocks``) is a later slice of the port."""
         if pairs:
-            raise NotImplementedError("restriping needs a sharded pool")
+            raise NotImplementedError(
+                "elastic restripe (shard_restripe_kv_blocks, "
+                "PagedKVCache.restripe) is a later slice of the port")
 
     # -------------------------------------------------------------- decode
     def adopt(self, new_caches: dict) -> None:
         """Fold one decode step's pools back in.  The fused tick wrote each
         new token's K/V into the live pools in place, so the tree hands
-        back these very tensors; anything else is a fault."""
+        back these very tensors (or per-shard lists); anything else is a
+        fault."""
         for i in self.attn_layers:
             ent = new_caches[str(i)]["self"]
             for part in ("k", "v"):

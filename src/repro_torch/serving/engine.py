@@ -59,14 +59,16 @@ Per-chunk timing is exposed in ``chunk_log`` / ``Request.chunk_sched`` /
 ``Request.chunk_exec``, and decode preemptions in ``preempt_log``, so
 benchmarks can compare executed against simulated TTFT/TBT and track
 memory-pressure behaviour.  On CPU this serves reduced models end-to-end
-(tests/test_engine, tests/test_paged_engine); on distributed meshes the
-paged pools themselves go sequence-parallel: the prefill pool stripes
+(tests/test_torch_engine); under a mesh context (launch/mesh.py
+``make_context(mesh, "serve_paged")``, tests/test_torch_sharded_engine)
+the paged pools themselves go sequence-parallel: the prefill pool stripes
 over ``ctx.sp_axis`` (chunks run ring attention and each shard's history
 pages rotate through the ring — core/ring_attention.ring_paged_prefill)
 and each decode pool stripes over ``ctx.kv_split_axis`` (split-KV paged
 decode island, per-shard partial softmax + LSE merge —
 core/ring_attention.sharded_paged_decode), with every page write/copy
-staying device-local (serving/cache_manager, tests/dist_progs).
+staying on its position (serving/cache_manager).  The engine's decisions
+are the same on a mesh: it only hands the model per-shard tables.
 """
 
 from __future__ import annotations

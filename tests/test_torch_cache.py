@@ -91,5 +91,6 @@ def test_paged_kv_cache_ops_match_reference():
     tkv.adopt({"0": {"self": dict(live)}})
     with pytest.raises(RuntimeError, match="in place"):
         tkv.adopt({"0": {"self": {p: t.clone() for p, t in live.items()}}})
-    with pytest.raises(NotImplementedError):
+    # a striped pool lives on a mesh's positions: none given, it refuses
+    with pytest.raises(ValueError, match="mesh"):
         PagedKVCache(cfg, TOTAL, PAGE, kv_shards=2, device="cpu")

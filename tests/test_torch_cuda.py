@@ -907,3 +907,94 @@ def test_moe_layer_full_width_bf16_on_card(gather):
           f"route to another top-4 set ({int(near.sum())} near ties); "
           f"{int((~alike).sum())} of {x.shape[1]} tokens routed otherwise; "
           f"alike tokens' worst |dy| / row scale {float(ratio.max()):.4f}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sharded_islands_on_card(dtype):
+    """The mesh islands on 4 positions of the one card against the plain
+    path on the same positions: ring attention (causal, window), the
+    split-KV paged decode with its fused append (rows appending on every
+    shard, a row of length 0, a stripe narrowed to 2 shards) and the
+    ring-paged prefill over striped history (a scratch-padded column, a
+    history length off the page grid), and the 3-dim fallbacks of
+    ops.paged_prefill_attention / paged_decode_attention (K3 over the
+    logical slab ++ chunk, K4 over the logical view)."""
+    dev = _card()
+    import numpy as np
+    from repro_torch.core import ring_attention as ring
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import paged_flash_decode
+    from repro_torch.launch.mesh import make_mesh
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    mesh = make_mesh((4,), ("x",), device="cuda")
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, dt)
+
+    def close(a, b):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+
+    B, S, H, KVH, D, page = 2, 256, 8, 2, 128, 16
+    q, k, v = rnd(B, S, H, D), rnd(B, S, KVH, D), rnd(B, S, KVH, D)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    for window in (None, 40):
+        before = flash_attention.launches
+        got = ring.ring_attention(q, k, v, pos, pos, mesh=mesh, sp_axis="x",
+                                  window=window)
+        assert flash_attention.launches == before + 16
+        close(got, ring.ring_attention(q, k, v, pos, pos, mesh=mesh,
+                                       sp_axis="x", window=window,
+                                       impl="ref"))
+    # striped pools: 9 pages a row over 4 shards, local ids shuffled
+    npg, bps = 9, 2 * 3
+    lengths = torch.tensor([0, 135], dtype=torch.int32, device=dev)
+    for active in (None, 2):
+        n_act = active or 4
+        cols = -(-npg // n_act)
+        kp = [rnd(bps * 2 + 1, page, KVH, D) for _ in range(4)]
+        vp = [rnd(bps * 2 + 1, page, KVH, D) for _ in range(4)]
+        bt = torch.full((4, B, cols), bps * 2, dtype=torch.int32)
+        perm = [np.random.default_rng(s).permutation(bps * 2)
+                for s in range(4)]
+        for b in range(B):
+            for j in range(npg):
+                s = j % n_act
+                bt[s, b, j // n_act] = int(perm[s][b * cols + j // n_act])
+        bt = bt.to(dev)
+        qd, kn, vn = rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
+        ref_k, ref_v = [x.clone() for x in kp], [x.clone() for x in vp]
+        before = paged_flash_decode.launches
+        o, _, _ = ring.sharded_paged_decode(
+            qd, kp, vp, bt, lengths, mesh=mesh, split_axis="x", k_new=kn,
+            v_new=vn, active_shards=active)
+        assert paged_flash_decode.launches == before + 4
+        po, _, _ = ring.sharded_paged_decode(
+            qd, ref_k, ref_v, bt, lengths, mesh=mesh, split_axis="x",
+            k_new=kn, v_new=vn, active_shards=active, impl="ref")
+        close(o, po)
+        for a, b in zip(kp + vp, ref_k + ref_v):
+            assert torch.equal(a[:-1], b[:-1])
+    hist = torch.tensor([37, 130], dtype=torch.int32, device=dev)
+    Sq = 32
+    qc, kc, vc = rnd(B, Sq, H, D), rnd(B, Sq, KVH, D), rnd(B, Sq, KVH, D)
+    qpos = hist[:, None] + torch.arange(Sq, dtype=torch.int32, device=dev)
+    for window in (None, 24):
+        got = ring.ring_paged_prefill(qc, kc, vc, qpos, qpos, kp, vp, bt,
+                                      hist, mesh=mesh, sp_axis="x",
+                                      window=window)
+        want = ring.ring_paged_prefill(qc, kc, vc, qpos, qpos, kp, vp, bt,
+                                       hist, mesh=mesh, sp_axis="x",
+                                       window=window, impl="ref")
+        close(got, want)
+        close(ops.paged_prefill_attention(qc, kc, vc, qpos, qpos, kp, vp,
+                                          bt, hist, window=window),
+              ops.paged_prefill_attention(qc, kc, vc, qpos, qpos, kp, vp,
+                                          bt, hist, window=window,
+                                          impl="ref"))
+    close(ops.paged_decode_attention(qd, kp, vp, bt, hist),
+          ops.paged_decode_attention(qd, kp, vp, bt, hist, impl="ref"))

@@ -3,7 +3,7 @@
 Each scenario of the reference's engine tests runs through both engines
 with the same trace and the same (bridged) weights.  The engine clock is
 modelled, so the records must match exactly: generated tokens,
-``chunk_log``, ``preempt_log`` and ``mixed_stats``."""
+``chunk_log``, ``preempt_log``, ``mixed_stats`` and ``swap_stats``."""
 
 import numpy as np
 import pytest
@@ -56,12 +56,38 @@ def _two_chunk(sim, cp, parallel=False):
     return TwoChunk
 
 
+def _mixed_two_chunk(sim, cp):
+    """tests/test_mixed_steps.py's ParallelTwoChunkPolicy: the per-rid
+    instance pair of ``_two_chunk(parallel=True)``, its chunks timed from
+    0 rather than from the pool's queue."""
+
+    class MixedTwoChunk(sim.Policy):
+        name = "two_chunk_par"
+
+        def plan(self, req, pool, now):
+            L = req.prompt_len
+            base = (2 * req.rid) % (self.spec.n_prefill - 1)
+            if L >= 32:
+                l0 = L // 2
+                t0 = self.model.latency(1, 0, l0)
+                t1 = self.model.latency(2, l0, L - l0)
+                return cp.Allocation([
+                    cp.Chunk(l0, (base,), 0.0, t0),
+                    cp.Chunk(L - l0, (base, base + 1), t0, t0 + t1)])
+            t = self.model.latency(1, 0, L)
+            return cp.Allocation([cp.Chunk(L, (base,), 0.0, t)])
+
+    return MixedTwoChunk
+
+
 def _run(side, params, cfg, spec_kw, policy, reqs, engine_kw, preempt=()):
     Eng, Req, sim, cp, table1, extra = SIDES[side]
     spec = sim.ClusterSpec(**spec_kw)
     model = table1()
     if policy in ("two_chunk", "parallel"):
         pol = _two_chunk(sim, cp, parallel=policy == "parallel")(model, spec)
+    elif policy == "parallel_mixed":
+        pol = _mixed_two_chunk(sim, cp)(model, spec)
     else:
         pol = sim.make_policy(policy, model, spec)
     eng = Eng(cfg, params, spec, pol, **engine_kw, **extra)
@@ -74,14 +100,23 @@ def _run(side, params, cfg, spec_kw, policy, reqs, engine_kw, preempt=()):
     return eng
 
 
-def _trace(cfg, seed, n, lo, hi, gap, out_len, fixed=None):
+def _trace(cfg, seed, n, lo, hi, gap, out_len, fixed=None, arrivals=None,
+           prefix=0):
+    """``n`` requests, every ``gap`` seconds (or at ``arrivals``), with
+    ``out_len`` output tokens (an int, or one per request).  ``prefix``
+    draws a common prompt prefix of that many tokens first, each prompt
+    then continuing with tokens of its own."""
     rng = np.random.default_rng(seed)
+    common = (rng.integers(0, cfg.vocab_size, prefix) if prefix
+              else np.zeros(0, np.int64))
+    outs = out_len if isinstance(out_len, tuple) else (out_len,) * n
     reqs = []
     for i in range(n):
         plen = fixed or int(rng.integers(lo, hi))
-        reqs.append((i, i * gap,
-                     rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
-                     out_len))
+        prompt = np.concatenate([common, rng.integers(0, cfg.vocab_size,
+                                                      plen)])
+        reqs.append((i, i * gap if arrivals is None else arrivals[i],
+                     prompt.astype(np.int32), outs[i]))
     return reqs
 
 
@@ -157,6 +192,44 @@ SCENARIOS = {
         policy="two_chunk",
         engine=dict(max_batch=4, max_seq=256, block_size=32),
         trace=dict(seed=7, n=2, lo=40, hi=90, gap=0.03, out_len=3)),
+    # tests/test_kv_offload.py:23 — the same pressure with
+    # preempt_policy="swap": victims park their pages on the host tier and
+    # swap back in
+    "swap_pressure": dict(
+        spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
+        policy="parallel",
+        engine=dict(max_batch=4, max_seq=48, block_size=16,
+                    preempt_policy="swap"),
+        trace=dict(seed=21, n=3, lo=0, hi=0, gap=0.005, out_len=6,
+                   fixed=60)),
+    # tests/test_prefix_sharing.py:56 — two prompts with a common 48-token
+    # prefix: the second's admission shares the first's full blocks
+    "shared_prefix": dict(
+        spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
+        policy="parallel",
+        engine=dict(max_batch=4, max_seq=256, block_size=16,
+                    prefix_sharing=True),
+        trace=dict(seed=31, n=2, lo=0, hi=0, gap=0.01, out_len=(12, 6),
+                   fixed=16, prefix=48)),
+    # tests/test_mixed_steps.py:66 — decode colocated with the prefill
+    # instances: ticks ride chunk steps (piggyback), or wait for the
+    # chunk window to end (stall)
+    "piggyback": dict(
+        spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
+        policy="parallel_mixed",
+        engine=dict(max_batch=4, max_seq=80, block_size=16,
+                    decode_hosts={0: tuple(range(8))}, piggyback=True,
+                    prefill_pool_blocks=64),
+        trace=dict(seed=1, n=4, lo=0, hi=0, gap=0.0, out_len=6, fixed=60,
+                   arrivals=(0.0, 0.0, 0.35, 0.45))),
+    "piggyback_stall": dict(
+        spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
+        policy="parallel_mixed",
+        engine=dict(max_batch=4, max_seq=80, block_size=16,
+                    decode_hosts={0: tuple(range(8))}, piggyback=False,
+                    prefill_pool_blocks=64),
+        trace=dict(seed=1, n=4, lo=0, hi=0, gap=0.0, out_len=6, fixed=60,
+                   arrivals=(0.0, 0.0, 0.35, 0.45))),
     # tests/test_paged_engine.py:200 — decode growth exhausts a tight pool
     "block_exhaustion": dict(
         spec=dict(n_prefill=8, n_decode=1, sp_candidates=(1, 2, 4)),
@@ -183,7 +256,19 @@ def test_engine_records_match_reference(scenario, reduced_params_cache):
     assert port.chunk_log == ref.chunk_log
     assert port.preempt_log == ref.preempt_log
     assert port.mixed_stats == ref.mixed_stats
+    assert port.swap_stats == ref.swap_stats
     assert all(len(v) > 0 for v in port.outputs.values())
+    if scenario == "swap_pressure":
+        assert port.swap_stats["swap_outs"] >= 1
+        assert all(e["policy"] == "swap" for e in port.preempt_log)
+    if scenario == "shared_prefix":
+        assert port.dstates[0].blocks.stats["shared"] >= 3
+    if scenario == "piggyback":
+        assert port.mixed_stats["piggyback_ticks"] > 0
+        assert port.mixed_stats["fused_steps"] > 0
+    if scenario == "piggyback_stall":
+        assert port.mixed_stats["piggyback_ticks"] == 0
+        assert port.mixed_stats["deferred_ticks"] > 0
     if scenario == "block_exhaustion":
         assert port.preempt_log, "the tight pool must preempt"
     if scenario == "preempt_requeue":

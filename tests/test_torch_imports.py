@@ -31,8 +31,22 @@ def test_port_imports_neither_jax_nor_reference():
             "configs/chatglm3_6b.py", "configs/nemotron_4_15b.py",
             "configs/phi4_mini_3_8b.py", "configs/llama3_70b.py",
             "configs/qwen2_vl_72b.py", "configs/mixtral_8x22b.py",
-            "configs/whisper_medium.py"} <= names
+            "configs/whisper_medium.py", "launch/mesh.py",
+            "core/ring_attention.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
            for p in files for line, name in _imports(p)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+def test_mesh_modules_import_without_jax():
+    """The mesh slice's modules import in a process where jax cannot be
+    imported at all."""
+    import subprocess
+    import sys
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.launch.mesh, repro_torch.core.ring_attention,"
+            " repro_torch.models.attention, repro_torch.serving.engine")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
