@@ -46,6 +46,21 @@ Phases, each printing JSON lines:
                rejected) and its logits to the plain path's; device ms
                per chunk and tick (sharded and unsharded) and one K3
                call's time at the ring-step shapes are printed;
+  3c. serve_elastic — Llama-3-8B at full width, bf16, the same trace on
+               two more engines of the one card: the 4-position mesh
+               engine restriped live (2 active shards before any
+               prefill, 4 between the longest request's tokens 2 and 3,
+               2 after its tokens 4 and 5; the log must show pages moved
+               on both live resizes, no preemption, no stalled tick; each
+               resize's pages and exchange time are printed), and the
+               TP x SP engine on a 2 x 2 ("data" x "model") mesh, pools
+               head-sharded (a quarter of the unsharded pools' bytes a
+               position; K1/K3 launches exactly as predicted per chunk
+               and tick).  Every step of both engines' streams is held
+               by the tie rule of 3b on five paths; the longest request's
+               TP x SP replay holds each K1/K3 call to its plain version
+               (planted faults rejected) and its logits to the plain
+               path's; device ms per chunk and tick of the four engines;
   4. dense   — Llama-3-8B at full width through CDSP chunked prefill over
                a dense history (K3), the hand-off to dense decode caches,
                and 16 dense decode ticks (K4); the first tick is held to
@@ -61,19 +76,21 @@ Phases, each printing JSON lines:
                the plain path's;
   6. tokens  — fp32 at two layers (full widths): each served model's
                engine gives identical greedy tokens on the kernel path and
-               the plain path, Llama's 4-position mesh engine and its
-               dense path give the paged engine's tokens, and Whisper's
+               the plain path, Llama's 4-position mesh engine (also
+               restriped live), its 2 x 2 TP x SP engine and its dense
+               path give the paged engine's tokens, and Whisper's
                path (two encoder and two decoder layers) gives the plain
                path's.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-6 (3b included) run.  ``--only profile`` adds a
-torch.profiler breakdown of one full-width prefill chunk and one decode
-tick of each served model and of Whisper (kernel time by group and by
-aten op, on Qwen by MoE stage, and the card's idle share); it fails where
-a window shows no time for a kernel it must run.
+subset; with no arguments phases 1-6 (3b and 3c included) run.
+``--only profile`` adds a torch.profiler breakdown of one full-width
+prefill chunk and one decode tick of each served model and of Whisper
+(kernel time by group and by aten op, on Qwen by MoE stage, and the
+card's idle share); it fails where a window shows no time for a kernel
+it must run.
 """
 
 from __future__ import annotations
@@ -117,6 +134,11 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
          # the mesh path: ring steps and slabs through K3, the split-KV
          # tick through K1; K2 stays on the single-device engine
          "serve_sp": {"paged_flash_decode", "flash_attention"},
+         # the same mesh restriped live 4 -> 2 -> 4 -> 2 (the exchange is
+         # page copies, no kernel), and the TP x SP mesh: K3 per ring step
+         # and K1 per tick on each (data, model) position's head slice
+         "serve_elastic": {"paged_flash_decode", "flash_attention"},
+         "serve_tp": {"paged_flash_decode", "flash_attention"},
          "dense": {"flash_attention", "flash_decode"},
          "whisper": {"flash_attention", "flash_decode"}}
 # the served attention models whose replay holds each K1-K3 call to its
@@ -998,16 +1020,21 @@ def _replay(cfg, params, ctx, prompt, tokens):
     page = 64
     L = len(prompt)
     l0 = L // 2
-    # on a mesh context the pool stripes over the SP positions: logical
-    # page j on shard j % n_sh, as the engine's BlockManager allocates
+    # on a mesh context the pool stripes over the live stripe's SP
+    # positions (``ctx.active_pool_shards`` of them): logical page j on
+    # shard j % act, as the engine's BlockManager allocates; on a TP x SP
+    # context the pool is head-sharded too, as the engine builds it
     n_sh = ctx.pool_shards("prefill")
+    act = ctx.active_shards("prefill")
     pages = -(-(L + len(tokens)) // page)
-    n = -(-pages // n_sh) * n_sh                  # whole stripes
+    bps = -(-pages // act)
+    n = bps * n_sh
     kv = PagedKVCache(cfg, n, page, kv_shards=n_sh,
                       mesh=ctx.mesh if n_sh > 1 else None,
-                      shard_axis=ctx.pool_axis("prefill"), device=ctx.device)
-    bps = n // n_sh
-    blocks = [(j % n_sh) * bps + j // n_sh for j in range(n)]
+                      shard_axis=ctx.pool_axis("prefill"),
+                      head_axis=(ctx.pool_head_axis(cfg.n_kv_heads)
+                                 if n_sh > 1 else None), device=ctx.device)
+    blocks = [(j % act) * bps + j // act for j in range(bps * act)]
     dev = ctx.device
     toks = torch.as_tensor(prompt, device=dev)[None]
     pos = torch.arange(L, dtype=torch.int32, device=dev)[None]
@@ -1017,12 +1044,12 @@ def _replay(cfg, params, ctx, prompt, tokens):
         lg, nc, aux = prefill_chunk_paged(
             params, cfg, ctx, toks[:, off:off + ln], pos[:, off:off + ln],
             kv.pools, blocks[:-(-off // page)], off, aux)
-        kv.write_chunk(blocks, nc, pos[:, off:off + ln])
+        kv.write_chunk(blocks, nc, pos[:, off:off + ln], active=act)
         out.append(lg[0, 0, :cfg.vocab_size].float())
         del nc
     bt = np.asarray(blocks, np.int32)[None]
     if n_sh > 1:
-        bt = shard_block_table(bt, n_sh, bps)
+        bt = shard_block_table(bt, act, bps, n_slots=n_sh)
     bt = torch.as_tensor(bt, device=dev)
     caches = {}
     for i, spec in enumerate(cfg.pattern):
@@ -1544,27 +1571,28 @@ def _stream_ties(cfg, params, ctxs: dict, prompts, want: dict, got: dict):
     """Teacher-force each request's whole stream in ``want`` on every path
     (``ctxs``: name -> context) and hold every step: each path's argmax
     must be ``want``'s token, or the step a tie, every path scoring the two
-    tokens within TIE_TOL.  The step where ``got``'s stream first parts
-    from ``want``'s is held to the same rule with ``got``'s token; after
-    it ``got`` runs on another prefix, and the paths' rows on ``want``'s
-    prefix are what is checked.  Returns per request: the steps checked,
-    the first parting, each step and token other than ``want``'s (each
-    path's score gap, ``tie``), and the largest row difference between
-    each two paths."""
+    tokens within TIE_TOL.  ``got`` maps each engine held to ``want`` to
+    its streams: the step where an engine's stream first parts from
+    ``want``'s is held to the same rule with that engine's token; after
+    it the engine runs on another prefix, and the paths' rows on
+    ``want``'s prefix are what is checked.  Returns per request: the
+    steps checked, each engine's first parting, each step and token other
+    than ``want``'s (each path's score gap, ``tie``, the engines whose
+    token it was), and the largest row difference between each two
+    paths."""
     import itertools
     import torch
     out = {}
     for rid, a in want.items():
-        b = got[rid]
-        part = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        part = {e: next((i for i, (x, y) in enumerate(zip(a, g[rid]))
+                         if x != y), None) for e, g in got.items()}
         rows = {n: torch.stack(_replay(cfg, params, c, prompts[rid],
                                        a[:-1])[1:])
                 for n, c in ctxs.items()}
         others = []
         for t, tok in enumerate(a):
             alt = {int(r[t].argmax()) for r in rows.values()}
-            if t == part:
-                alt.add(b[t])
+            alt |= {got[e][rid][t] for e, i in part.items() if i == t}
             for g in sorted(alt - {tok}):
                 gaps = {n: abs(float(r[t, tok] - r[t, g]))
                         for n, r in rows.items()}
@@ -1572,8 +1600,9 @@ def _stream_ties(cfg, params, ctxs: dict, prompts, want: dict, got: dict):
                     "step": t, "tokens": [tok, g],
                     "argmax": [n for n, r in rows.items()
                                if int(r[t].argmax()) == g],
-                    "engine": t == part and g == b[t], "gaps": gaps,
-                    "tie": max(gaps.values()) <= TIE_TOL})
+                    "engines": [e for e, i in part.items()
+                                if i == t and got[e][rid][t] == g],
+                    "gaps": gaps, "tie": max(gaps.values()) <= TIE_TOL})
         out[rid] = {
             "steps": len(a), "parting": part, "others": others,
             "max_abs_err": {f"{m}-{n}": float((rows[m] - rows[n]).abs().max())
@@ -1663,7 +1692,7 @@ def phase_serve_sp() -> dict:
     # identity is held in fp32 (phase tokens)
     ties = _stream_ties(cfg, params, {"unsharded": ctx, "sharded": sp_ctx,
                                       "plain": ctx.with_(impl="ref")},
-                        prompts, flat["outputs"], sh["outputs"])
+                        prompts, flat["outputs"], {"sharded": sh["outputs"]})
     emit(phase="serve_sp", model=cfg.name, stream_ties=ties,
          tie_tol=TIE_TOL, steps_checked=sum(r["steps"] for r in ties.values()))
     check(all(o["tie"] for r in ties.values() for o in r["others"]),
@@ -1707,6 +1736,281 @@ def phase_serve_sp() -> dict:
     del params
     _free()
     return counts
+
+
+# --------------------------------------------------- phase 3c: serve_elastic
+TP = 2            # TP positions of the TP x SP engine ("model" axis)
+
+
+def _tp_context(impl=None):
+    """The TP x SP engine's context: a "data" x "model" mesh of SP // TP
+    x TP positions, every one on the one card; the pools stripe over
+    "data" and, Llama's 8 KV heads dividing "model", shard their KV
+    heads over it."""
+    from repro_torch.launch.mesh import make_context, make_mesh
+    return make_context(make_mesh((SP // TP, TP), ("data", "model"),
+                                  device="cuda"), "serve_paged", impl=impl)
+
+
+def tp_launches(n_layers: int) -> dict:
+    """Launches per step on the TP x SP mesh, from the shapes: each TP
+    index rings its query heads over its SP column of SP // TP
+    positions, so a first chunk makes (SP // TP)^2 K3 calls a layer and
+    TP index, a history chunk twice that (own KV, then the slab), and a
+    tick one K1 call a (data, model) position and layer."""
+    sp = SP // TP
+    return {"chunk1_K3": TP * sp * sp * n_layers,
+            "chunk2_K3": 2 * TP * sp * sp * n_layers,
+            "tick_K1": sp * TP * n_layers}
+
+
+def tp_gate_plan(n_layers: int):
+    """(calls, keep) of ``attn_call_gate`` for the TP x SP replay (two
+    chunks, then a tick), in the order (TP index, ring step, position).
+    Kept for planted faults: the history chunk's first own and slab calls
+    (layer 0, TP index 0) and its last two (the last layer, TP index 1),
+    and the tick's first and last calls."""
+    per = tp_launches(n_layers)
+    c1, c2, k1 = per["chunk1_K3"], per["chunk2_K3"], per["tick_K1"]
+    return ({"flash_attention": c1 + c2, "paged_flash_decode": k1},
+            {"flash_attention": (c1, c1 + 1, c1 + c2 - 2, c1 + c2 - 1),
+             "paged_flash_decode": (0, k1 - 1)})
+
+
+def _serve_resized(cfg, params, prompts, ctx, output_len, restripes, **kw):
+    """``_serve``'s trace on an engine asked for ``restripes`` ((width,
+    time) pairs, ``request_restripe``) before it serves.  Each pool's
+    ``PagedKVCache.restripe`` is timed between CUDA events.  Returns the
+    drained engine and, per resize, the pages moved and the device ms of
+    its exchanges (one per pool)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import SPEC
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    eng = ServingEngine(cfg, params, SPEC, _two_chunk_policy(), ctx=ctx,
+                        max_batch=4, **kw)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, arrival=i / 2.0, prompt_len=len(p),
+                           output_len=output_len), np.asarray(p, np.int32))
+    for n, at in restripes:
+        eng.request_restripe(n, at=at)
+    calls = []
+
+    def timed(kv):
+        move = kv.restripe
+
+        def restripe(pairs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            move(pairs)
+            end.record()
+            end.synchronize()
+            calls.append((len(pairs), start.elapsed_time(end)))
+        return restripe
+
+    pools = [kv for _, kv in eng._pool_pairs()]
+    for kv in pools:
+        kv.restripe = timed(kv)
+    eng.serve()
+    k = len(pools)
+    return eng, [{"pages": sum(m for m, _ in calls[i:i + k]),
+                  "ms": sum(t for _, t in calls[i:i + k])}
+                 for i in range(0, len(calls), k)]
+
+
+def _pool_bytes(kv) -> int:
+    """Bytes one mesh position holds of ``kv``'s pools (every layer, K and
+    V), its scratch page aside: position 0's tensor of each leaf."""
+    total = 0
+    for ent in kv.pools.values():
+        for leaf in ent.values():
+            while isinstance(leaf, list):
+                leaf = leaf[0]
+            total += leaf[:, :-1].nbytes
+    return total
+
+
+def phase_serve_elastic() -> dict:
+    """Llama-3-8B at full width, bf16, the serve phase's trace, on two
+    more engines of the one card.  Restripe: the 4-position mesh engine
+    narrowed to 2 active shards before any prefill, widened 2 -> 4
+    between the longest request's tokens 2 and 3 and narrowed 4 -> 2
+    between its tokens 4 and 5 (times from the unresized run); its
+    restripe log must show widths [2, 4, 2], pages moved on both live
+    resizes, no preemption and no stalled tick.  TP x SP: the engine on a
+    2 x 2 ("data" x "model") mesh, pools head-sharded; per position a
+    quarter of the unsharded pools' bytes, and exactly the predicted K1
+    and K3 launches per chunk and tick.  Every step of every stream of
+    both is held by ``_stream_ties`` against the unsharded engine's
+    streams; the longest request's TP x SP replay holds each K1/K3 call
+    to its plain version (planted faults rejected), and its logits to the
+    plain path's.  Returns the launch counts of both runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.sharding import make_context
+    cfg = get_config("llama3-8b")
+    ctx = make_context("cuda")
+    sp_ctx, tp_ctx = _sp_context(), _tp_context()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=ctx.device)
+    torch.cuda.synchronize()
+    emit(phase="serve_elastic", model=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, params=count_params(params),
+         mesh_sp=repr(sp_ctx.mesh), mesh_tp=repr(tp_ctx.mesh),
+         init_s=round(time.perf_counter() - t0, 2))
+    rng = np.random.default_rng(0)
+    lens = [512, 2048, 4096, 6144]
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+               for L in lens]
+    out_len = 16
+    kw = dict(max_seq=6208, prefill_pool_blocks=256, host_pool_blocks=128,
+              profile_ops=True)
+    last = len(lens) - 1
+    runs = {}
+    resizes = None
+    for name, c in (("unsharded", ctx), ("sharded", sp_ctx),
+                    ("restriped", sp_ctx), ("tp", tp_ctx)):
+        _free()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if name == "restriped":
+            tt = runs["sharded"]["token_times"]
+            eng, resizes = _serve_resized(
+                cfg, params, prompts, c, out_len,
+                [(2, None), (4, 0.5 * (tt[2] + tt[3])),
+                 (2, 0.5 * (tt[4] + tt[5]))], **kw)
+        else:
+            eng = _serve(cfg, params, prompts, c, out_len, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {
+            "launches": _read_counts(), "outputs": dict(eng.outputs),
+            "plans": {rid: r.chunk_plan for rid, r in eng.reqs.items()},
+            "token_times": list(eng.reqs[last].token_times),
+            "pool_bytes": {"prefill": _pool_bytes(eng.pkv),
+                           "decode": _pool_bytes(eng.dstates[0].kv)},
+            "kv_head_shards": eng.pkv.kv_head_shards,
+            "ticks": (_hist(eng, "op_device_us/decode_tick")
+                      or {"count": 0})["count"],
+            "chunk_device_us": _hist(eng, "op_device_us/prefill_chunk"),
+            "tick_device_us": _hist(eng, "op_device_us/decode_tick"),
+            "restripe_log": list(eng.restripe_log),
+            "restripe_device_us": _hist(
+                eng, "op_device_us/restripe_all_to_all"),
+            "preempt_log": list(eng.preempt_log),
+            "stall_ticks": eng.stall_ticks}
+        emit(phase="serve_elastic", model=cfg.name, engine=name,
+             wall_s=round(wall, 2),
+             **{k: v for k, v in runs[name].items()
+                if k not in ("outputs", "plans", "token_times",
+                             "preempt_log")},
+             outputs={str(k): v for k, v in eng.outputs.items()})
+        del eng
+    flat, el, tp = runs["unsharded"], runs["restriped"], runs["tp"]
+    for name in ("restriped", "tp"):
+        check(all(len(p) == 2 for p in runs[name]["plans"].values()),
+              f"serve_elastic {name}: every request must run two chunks")
+
+    # restripe: the log, and each live resize's pages and exchange time
+    log = el["restripe_log"]
+    page_bytes = (2 * cfg.n_layers * 64 * cfg.n_kv_heads * cfg.head_dim_
+                  * 2)
+    for r, e in zip(resizes, log):
+        r.update(n_old=e["n_old"], n_new=e["n_new"],
+                 migrated_blocks=e["migrated_blocks"],
+                 bytes=r["pages"] * page_bytes,
+                 bound_ms=bound_ms(2 * r["pages"] * page_bytes, 0,
+                                   "bfloat16")[0])
+    emit(phase="serve_elastic", model=cfg.name, resizes=resizes,
+         page_bytes=page_bytes, restripe_device_us=el["restripe_device_us"])
+    _check_launches(el["launches"], "serve_elastic")
+    check([e["n_new"] for e in log] == [2, 4, 2],
+          f"serve_elastic: restripe log {log}")
+    check(log[0]["migrated_blocks"] == 0 and log[1]["migrated_blocks"] > 0
+          and log[2]["migrated_blocks"] > 0,
+          f"serve_elastic: the live resizes must move pages: {log}")
+    check(not el["preempt_log"] and el["stall_ticks"] == 0,
+          f"serve_elastic: a resize preempted or stalled: "
+          f"{el['preempt_log']}, {el['stall_ticks']} stalled ticks")
+    check([r["pages"] for r in resizes] == [e["migrated_blocks"]
+                                           for e in log],
+          f"serve_elastic: pages moved {resizes} against the log {log}")
+
+    # TP x SP: head-sharded pools, a quarter of the bytes a position, and
+    # the launches the shapes predict
+    per = tp_launches(cfg.n_layers)
+    n_req = len(lens)
+    want = {"flash_attention": n_req * (per["chunk1_K3"]
+                                        + per["chunk2_K3"]),
+            "paged_flash_decode": tp["ticks"] * per["tick_K1"]}
+    emit(phase="serve_elastic", model=cfg.name, engine="tp",
+         launches_per_step=per, launches_predicted=want,
+         pool_bytes_per_position=tp["pool_bytes"],
+         pool_bytes_unsharded=flat["pool_bytes"])
+    _check_launches(tp["launches"], "serve_tp")
+    check(tp["kv_head_shards"] == TP,
+          f"serve_elastic: pools head-sharded {tp['kv_head_shards']} ways")
+    check(all(tp["launches"][k] == v for k, v in want.items()),
+          f"serve_elastic: TP x SP launches {tp['launches']}, predicted "
+          f"{want}")
+    check(all(4 * tp["pool_bytes"][k] == flat["pool_bytes"][k]
+              for k in ("prefill", "decode")),
+          f"serve_elastic: a position's pool bytes {tp['pool_bytes']} are "
+          f"not a quarter of the unsharded {flat['pool_bytes']}")
+    emit(phase="serve_elastic", model=cfg.name, device_ms={
+        f"{op}_mean": {k: r[f"{op}_device_us"]["mean"] / 1e3
+                       for k, r in runs.items() if r[f"{op}_device_us"]}
+        for op in ("chunk", "tick")},
+        tokens_identical={n: {str(r): runs[n]["outputs"][r] == t
+                              for r, t in flat["outputs"].items()}
+                          for n in ("sharded", "restriped", "tp")})
+
+    # every step of every stream of both engines, on every path
+    ties = _stream_ties(
+        cfg, params, {"unsharded": ctx, "sharded": sp_ctx,
+                      "narrowed": sp_ctx.with_(active_pool_shards=2),
+                      "tp": tp_ctx, "plain": ctx.with_(impl="ref")},
+        prompts, flat["outputs"], {"restriped": el["outputs"],
+                                   "tp": tp["outputs"]})
+    emit(phase="serve_elastic", model=cfg.name, stream_ties=ties,
+         tie_tol=TIE_TOL, steps_checked=sum(r["steps"] for r in ties.values()))
+    check(all(o["tie"] for r in ties.values() for o in r["others"]),
+          "serve_elastic: a path's greedy token differs from the unsharded "
+          f"engine's at a step that is no tie: {ties}")
+
+    # the longest request's TP x SP replay: each K1/K3 call held to its
+    # plain version, and the logits to the plain (unsharded) path's
+    first = flat["outputs"][last][0]
+    _free()
+    got, gate = attn_call_gate(
+        lambda: _replay(cfg, params, tp_ctx, prompts[last], [first]),
+        *tp_gate_plan(cfg.n_layers))
+    L = lens[last]
+    pages = -(-(L + 1) // 64)
+    emit(phase="serve_elastic", model=cfg.name, engine="tp",
+         attention_calls=gate, tol=KERNEL_TOL["bfloat16"],
+         shard_shapes={"K3_queries": L // 2 // (SP // TP),
+                       "K3_heads": cfg.padded_heads // TP,
+                       "K3_kv_heads": cfg.n_kv_heads // TP,
+                       "K1_table_cols": -(-pages // (SP // TP))})
+    check(gate["ok"], "serve_elastic: a K1/K3 call of the TP x SP replay "
+          f"disagrees with its plain version, or a planted fault passed: "
+          f"{gate}")
+    check(int(torch.argmax(got[1])) == first,
+          "serve_elastic: the TP x SP replay disagrees with the engine's "
+          "first token")
+    want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[last],
+                   [first])
+    _logits_vs_plain("serve_elastic", ("chunk1", "chunk2_history",
+                                       "decode_tick"),
+                     got, want, LOGIT_TOL["llama3-8b"])
+    del got, want, params
+    _free()
+    return {"serve_elastic": el["launches"], "serve_tp": tp["launches"]}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2012,23 +2316,44 @@ def _tokens_engine(arch: str, path: str, seed: int, lens, out_len: int):
 
 
 def _tokens_sharded(cfg, params, prompts, outs, out_len: int) -> None:
-    """The same fp32 trace on the ``SP``-position mesh engine: chunks of
-    150 and 1250 tokens do not divide over the ring and take the striped
-    history's gather fallback (K3 over slab ++ chunk), the others ring;
-    the tokens must be the unsharded kernel and plain engines'."""
-    _reset_counts()
-    eng = _serve(cfg, params, prompts, _sp_context(), out_len,
-                 max_seq=4096, prefill_pool_blocks=160, host_pool_blocks=64)
-    counts = _read_counts()
-    _check_launches(counts, "serve_sp")
-    same = dict(eng.outputs) == outs
-    emit(phase="tokens", model=cfg.name, impl="cuda", positions=SP,
-         launches=counts, identical=same,
-         outputs={str(k): v for k, v in eng.outputs.items()})
-    check(same, f"{cfg.name}: fp32 greedy tokens of the {SP}-position "
-          "mesh engine differ from the unsharded engines'")
-    del eng
-    _free()
+    """The same fp32 trace on the mesh engines: the ``SP``-position
+    engine (chunks of 150 and 1250 tokens do not divide over its ring
+    and take the striped history's gather fallback, K3 over slab ++
+    chunk; the others ring), the same restriped live as in
+    ``serve_elastic`` (2 active shards, 4 between the longest request's
+    tokens 2 and 3, 2 after its tokens 4 and 5), and the TP x SP engine
+    on the 2 x 2 mesh; the tokens must be the unsharded kernel and plain
+    engines'."""
+    kw = dict(max_seq=4096, prefill_pool_blocks=160, host_pool_blocks=64)
+    tt = None
+    for name, path in (("sharded", "serve_sp"), ("restriped", "serve_elastic"),
+                       ("tp", "serve_tp")):
+        _reset_counts()
+        if name == "restriped":
+            eng, _ = _serve_resized(
+                cfg, params, prompts, _sp_context(), out_len,
+                [(2, None), (4, 0.5 * (tt[2] + tt[3])),
+                 (2, 0.5 * (tt[4] + tt[5]))], **kw)
+        else:
+            eng = _serve(cfg, params, prompts,
+                         _tp_context() if name == "tp" else _sp_context(),
+                         out_len, **kw)
+        if tt is None:
+            tt = eng.reqs[len(prompts) - 1].token_times
+        counts = _read_counts()
+        _check_launches(counts, path)
+        same = dict(eng.outputs) == outs
+        emit(phase="tokens", model=cfg.name, impl="cuda", engine=name,
+             mesh=repr(eng.ctx.mesh), launches=counts, identical=same,
+             restripe_log=list(eng.restripe_log),
+             outputs={str(k): v for k, v in eng.outputs.items()})
+        check(same, f"{cfg.name}: fp32 greedy tokens of the {name} mesh "
+              "engine differ from the unsharded engines'")
+        if name == "restriped":
+            check([e["n_new"] for e in eng.restripe_log] == [2, 4, 2],
+                  f"{cfg.name}: restripe log {eng.restripe_log}")
+        del eng
+        _free()
 
 
 def phase_tokens():
@@ -2326,10 +2651,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
                     choices=["device", "kernels", "serve", "serve_sp",
-                             "dense", "whisper", "tokens", "profile"])
+                             "serve_elastic", "dense", "whisper", "tokens",
+                             "profile"])
     args = ap.parse_args(argv)
-    phases = args.only or ["device", "kernels", "serve", "serve_sp", "dense",
-                           "whisper", "tokens"]
+    phases = args.only or ["device", "kernels", "serve", "serve_sp",
+                           "serve_elastic", "dense", "whisper", "tokens"]
 
     import torch
     if not torch.cuda.is_available():
@@ -2345,6 +2671,8 @@ def main(argv=None) -> int:
     by_path = phase_serve() if "serve" in phases else {}
     if "serve_sp" in phases:
         by_path["serve_sp"] = phase_serve_sp()
+    if "serve_elastic" in phases:
+        by_path.update(phase_serve_elastic())
     if "dense" in phases:
         by_path["dense"] = phase_dense()
     if "whisper" in phases:

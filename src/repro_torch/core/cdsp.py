@@ -33,6 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import head_stripes
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import ExecContext
 from repro_torch.models.transformer import forward
@@ -122,7 +123,8 @@ def pages_history_view(cfg: ModelConfig, pools: dict, block_table,
 
     A sequence-parallel sharded pool (PagedKVCache with ``kv_shards > 1``,
     leaves that are lists of per-shard (nb, blocks_per_shard + 1, page,
-    KVH, D) tensors) gets the per-shard local tables (nb, n_shards, B,
+    KVH, D) tensors, or of lists of their head slices when head-sharded)
+    gets the per-shard local tables (nb, n_shards, B,
     npg_local) that the ring-paged prefill consumes
     (core/ring_attention.ring_paged_prefill), built from the global
     striped ids on position 0's device.  ``active_shards`` narrows the
@@ -143,10 +145,11 @@ def pages_history_view(cfg: ModelConfig, pools: dict, block_table,
                     bt = bt[None]                          # (B=1, npg)
                 B_ = bt.shape[0]
                 if isinstance(p["k"], list):               # striped pool
-                    n_sh, bps = len(p["k"]), p["k"][0].shape[1] - 1
+                    first = head_stripes(p["k"])[0][0]
+                    n_sh, bps = len(p["k"]), first.shape[1] - 1
                     act = min(active_shards or n_sh, n_sh)
                     bt = shard_block_table(bt, act, bps, n_slots=n_sh)
-                    dev = p["k"][0].device
+                    dev = first.device
                 else:
                     dev = p["k"].device
                 bt = torch.as_tensor(bt, device=dev)

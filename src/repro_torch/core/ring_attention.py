@@ -27,8 +27,17 @@ case.
   each shard's history pages, assembled into a positional slab, rotate
   through the ring beside the chunk's own KV.
 
-The head-sharding arguments (TP x SP) are accepted only as None.  The
-zigzag causal skip (``_ring_zigzag_skip``), ``split_kv_decode`` /
+On a 2-D mesh the attention heads also shard over a TP axis (TP x SP):
+``head_axis`` splits the query heads, and ``kv_head_axis`` the KV heads
+and the pools (a head-sharded pool's shard is a list of its head slices,
+serving/cache_manager.py).  Each TP index runs the SP island on its
+heads, over the positions of its SP column (``Mesh.positions(sp_axis,
+tp=t)``); the LSE merge stays over the SP axis, and the outputs meet,
+side by side, on q's device.  Where the KV heads do not divide the TP
+axis (n_kv < tp) they stay whole, replicated over TP, and each call
+slices the range its query heads read (``head_shard``).
+
+The zigzag causal skip (``_ring_zigzag_skip``), ``split_kv_decode`` /
 ``sharded_cache_update`` (dense split-KV decode) and ``sp_ssd`` (the
 sequence-parallel SSD scan) are later slices of the port.
 """
@@ -42,16 +51,57 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import INT32_MAX
 from repro_torch.kernels.ref import NEG_INF, _broadcast_pos
-from repro_torch.launch.mesh import (all_gather, ring_shift, split, to,
-                                     unsplit)
+from repro_torch.launch.mesh import (all_gather, head_part, head_stripes,
+                                     ring_shift, split, to, unsplit)
 
 
-def _no_heads(**axes) -> None:
-    for name, ax in axes.items():
-        if ax is not None:
-            raise NotImplementedError(
-                f"{name}={ax!r}: head sharding (TP x SP) is a later slice "
-                "of the port")
+def _lines(mesh, axis: str, head_axis: Optional[str]
+           ) -> List[Tuple[torch.device, ...]]:
+    """The positions along ``axis``, one line per index of ``head_axis``
+    (the SP column of each TP index), or the one line without it."""
+    if head_axis is None:
+        return [mesh.positions(axis)]
+    return [mesh.positions(axis, **{head_axis: t})
+            for t in range(mesh.shape[head_axis])]
+
+
+def _kv_head_range(H_loc: int, KVH: int, t: int, tp: int
+                   ) -> Tuple[int, int]:
+    """(first, count) of the KV heads that TP index ``t`` of ``tp``
+    reads for its ``H_loc`` query heads, out of ``KVH`` KV heads kept
+    whole (replicated over TP, n_kv < tp): reference
+    ``ring_paged_prefill_local``'s per-call head slice."""
+    if tp == 1 or KVH == 1:
+        return 0, KVH
+    group = (H_loc * tp) // KVH
+    if group % H_loc and H_loc % group:
+        raise ValueError(f"{H_loc} query heads a position do not tile "
+                         f"GQA groups of {group}")
+    return (t * H_loc) // group, max(1, H_loc // group)
+
+
+def _read_heads(q, k, v, head_shard: Tuple[int, int], pools=()):
+    """(k, v, *pools) narrowed to the KV heads TP index ``head_shard[0]``
+    reads (``_kv_head_range``): the chunk's parts made contiguous, the
+    pools left as views, which the slab gather copies."""
+    first, count = _kv_head_range(q[0].shape[2], k[0].shape[2],
+                                  *head_shard)
+    return ([x.narrow(2, first, count).contiguous() for x in k],
+            [x.narrow(2, first, count).contiguous() for x in v],
+            *([x.narrow(2, first, count) for x in p] for p in pools))
+
+
+def _stripes(mesh, pools, kv_head_axis: Optional[str]):
+    """``head_stripes`` of a pool, one per index of ``kv_head_axis`` (a
+    head-sharded pool), or the one stripe without it."""
+    out = head_stripes(pools)
+    want = 1 if kv_head_axis is None else mesh.shape[kv_head_axis]
+    if len(out) != want:
+        raise ValueError(
+            f"a pool of {len(out)} head slices under kv_head_axis="
+            f"{kv_head_axis!r}: a head-sharded pool needs the KV head "
+            "axis, and the KV head axis a head-sharded pool")
+    return out
 
 
 def _merge(o, lse, o_i, lse_i):
@@ -101,16 +151,21 @@ def ring_attention_local(q, k, v, q_pos, kv_pos, *,
                          devices: Sequence[torch.device],
                          causal: bool = True, window: Optional[int] = None,
                          softmax_scale=None, impl: Optional[str] = None,
-                         head_shard_axis: Optional[str] = None):
+                         head_shard: Optional[Tuple[int, int]] = None):
     """The per-shard bodies of ring attention, one per position.
 
     q: list of (B, S_loc, H, D); k/v: lists of (B, S_kv_loc, KVH, D);
     q_pos / kv_pos: lists of (B, S_loc) / (B, S_kv_loc) int32 — part i on
     ``devices[i]``.  Each step every position attends its queries to the
     KV it holds (K3 with lse), merges, and the KV moves one position on.
-    Returns (o, lse): lists of (B, S_loc, H, D) in q's dtype and (B, H,
-    S_loc) fp32."""
-    _no_heads(head_shard_axis=head_shard_axis)
+    ``head_shard`` = (t, tp): q holds TP index t's slice of the query
+    heads and the KV heads arrive whole (n_kv < tp); each position slices
+    out the KV heads its query heads read before the ring, so the ring
+    carries only those (reference ``head_shard_axis``).  Returns (o,
+    lse): lists of (B, S_loc, H, D) in q's dtype and (B, H, S_loc)
+    fp32."""
+    if head_shard is not None:
+        k, v = _read_heads(q, k, v, head_shard)
     return _ring(q, q_pos, [(k, v, kv_pos, causal)], devices=devices,
                  window=window, softmax_scale=softmax_scale, impl=impl)
 
@@ -122,18 +177,32 @@ def ring_attention(q, k, v, q_pos, kv_pos, *, mesh, sp_axis: str,
                    softmax_scale=None, impl: Optional[str] = None):
     """Global-view ring attention: q (B, S, H, D), k/v (B, S_kv, KVH, D)
     and their positions ((S,) or (B, S) int32) on position 0's device,
-    both sequence dims split contiguously over ``sp_axis``.  Returns
-    (B, S, H, D) on q's device."""
-    _no_heads(head_axis=head_axis, kv_head_axis=kv_head_axis)
-    devices = mesh.positions(sp_axis)
+    both sequence dims split contiguously over ``sp_axis``.  With
+    ``head_axis`` (TP) each TP index rings its slice of the query heads
+    over its SP column; ``kv_head_axis`` (the same axis, when KVH divides
+    it) slices the KV heads alike, else every TP index slices the KV
+    heads its queries read.  Returns (B, S, H, D) on q's device."""
+    if kv_head_axis is not None and kv_head_axis != head_axis:
+        raise ValueError(f"kv_head_axis={kv_head_axis!r} needs the query "
+                         f"heads on the same axis, not {head_axis!r}")
+    lines = _lines(mesh, sp_axis, head_axis)
+    tp = len(lines)
+    kv_tp = tp if kv_head_axis is not None else 1
     B = q.shape[0]
-    o, _ = ring_attention_local(
-        split(q, devices), split(k, devices), split(v, devices),
-        split(_broadcast_pos(q_pos, B), devices),
-        split(_broadcast_pos(kv_pos, B), devices),
-        devices=devices, causal=causal, window=window,
-        softmax_scale=softmax_scale, impl=impl)
-    return unsplit(o, q.device)
+    outs = []
+    for t, devices in enumerate(lines):
+        o, _ = ring_attention_local(
+            split(head_part(q, t, tp, 2), devices),
+            split(head_part(k, t, kv_tp, 2), devices),
+            split(head_part(v, t, kv_tp, 2), devices),
+            split(_broadcast_pos(q_pos, B), devices),
+            split(_broadcast_pos(kv_pos, B), devices),
+            devices=devices, causal=causal, window=window,
+            softmax_scale=softmax_scale, impl=impl,
+            head_shard=(t, tp) if head_axis is not None
+            and kv_head_axis is None else None)
+        outs.append(unsplit(o, q.device))
+    return torch.cat(outs, dim=2)
 
 
 # ----------------------------------------------------- sharded paged decode
@@ -243,25 +312,40 @@ def sharded_paged_decode(q, k_pool, v_pool, block_tables, lengths, *,
     its partial over its own pages; the partials meet on q's device and
     merge by LSE.  Returns (o, k_pool, v_pool), the pools being the same
     lists, written in place.  ``active_shards`` narrows the stripe to the
-    first so-many shards (rows past it must be all-scratch)."""
-    _no_heads(head_axis=head_axis)
-    devices = mesh.positions(split_axis)
-    if len(k_pool) != len(devices) or block_tables.shape[0] != len(devices):
+    first so-many shards (rows past it must be all-scratch).
+
+    ``head_axis`` (TP, only where KVH divides it) takes a head-sharded
+    pool, shard s a list of its head slices over TP: each TP index t
+    runs the island over its SP column with its slice of the query heads
+    and of k_new / v_new, against slice t of every shard's pool; the
+    LSE merge stays over ``split_axis``, and the heads' outputs are put
+    side by side."""
+    kps, vps = (_stripes(mesh, p, head_axis) for p in (k_pool, v_pool))
+    lines = _lines(mesh, split_axis, head_axis)
+    tp = len(lines)
+    if len(k_pool) != len(lines[0]) or block_tables.shape[0] != len(k_pool):
         raise ValueError(f"{len(k_pool)} pool shards and a table of "
                          f"{block_tables.shape[0]} rows over "
-                         f"{len(devices)} positions")
-    n = len(devices) if active_shards is None else active_shards
-    parts = []
-    for idx, dev in enumerate(devices):
-        parts.append(sharded_paged_decode_local(
-            to(q, dev), k_pool[idx], v_pool[idx],
-            to(block_tables[idx], dev), to(lengths, dev), n=n, idx=idx,
-            window=window, softmax_scale=softmax_scale, impl=impl,
-            k_new=None if k_new is None else to(k_new, dev),
-            v_new=None if v_new is None else to(v_new, dev)))
-    o = _lse_merge_over_axis([p[0] for p in parts], [p[1] for p in parts],
-                             q.device)
-    return o.to(q.dtype), k_pool, v_pool
+                         f"{len(lines[0])} positions")
+    n = len(k_pool) if active_shards is None else active_shards
+    outs = []
+    for t, (devices, kp, vp) in enumerate(zip(lines, kps, vps)):
+        q_t = head_part(q, t, tp, 1).contiguous()
+        kn = None if k_new is None else head_part(k_new, t, tp,
+                                                  1).contiguous()
+        vn = None if v_new is None else head_part(v_new, t, tp,
+                                                  1).contiguous()
+        parts = []
+        for idx, dev in enumerate(devices):
+            parts.append(sharded_paged_decode_local(
+                to(q_t, dev), kp[idx], vp[idx], to(block_tables[idx], dev),
+                to(lengths, dev), n=n, idx=idx, window=window,
+                softmax_scale=softmax_scale, impl=impl,
+                k_new=None if kn is None else to(kn, dev),
+                v_new=None if vn is None else to(vn, dev)))
+        outs.append(_lse_merge_over_axis([p[0] for p in parts],
+                                         [p[1] for p in parts], q.device))
+    return torch.cat(outs, dim=1).to(q.dtype), k_pool, v_pool
 
 
 # ------------------------------------------------------- ring paged prefill
@@ -270,7 +354,7 @@ def ring_paged_prefill_local(q, k, v, q_pos, kv_pos, k_pool, v_pool, bt,
                              causal: bool = True,
                              window: Optional[int] = None,
                              softmax_scale=None, impl: Optional[str] = None,
-                             head_shard_axis: Optional[str] = None,
+                             head_shard: Optional[Tuple[int, int]] = None,
                              active_shards: Optional[int] = None
                              ) -> Tuple[List[torch.Tensor],
                                         List[torch.Tensor]]:
@@ -287,14 +371,22 @@ def ring_paged_prefill_local(q, k, v, q_pos, kv_pos, k_pool, v_pool, bt,
     causal, its dead slots at INT32_MAX), merged by LSE.  The ring
     rotates over every position; only the history stripe narrows to
     ``active_shards``, idle shards contributing an empty slab.  The slabs
-    live until the function returns, one layer at a time."""
-    _no_heads(head_shard_axis=head_shard_axis)
+    live until the function returns, one layer at a time.
+
+    KV heads come in one of two layouts.  Head-sharded (TP x SP): the
+    pools and the chunk's KV are already this TP index's head slice.
+    Replicated over TP (n_kv < tp): ``head_shard`` = (t, tp) makes each
+    position slice out the KV heads its query heads read, of the chunk's
+    KV and of the pool, whose slab gather then copies only those."""
     n = len(devices)
+    if head_shard is not None:
+        k, v, k_pool, v_pool = _read_heads(q, k, v, head_shard,
+                                           (k_pool, v_pool))
     n_hist = n if active_shards is None else active_shards
-    slabs = [_local_page_slab(
+    slabs = [tuple(to(x, devices[i]) for x in _local_page_slab(
         k_pool[i], v_pool[i], bt[i],
         hist_len[i] if i < n_hist else torch.zeros_like(hist_len[i]),
-        n_hist, i) for i in range(n)]
+        n_hist, i)) for i in range(n)]
     hist = tuple(list(x) for x in zip(*slabs))
     del slabs
     return _ring(q, q_pos, [(k, v, kv_pos, causal), (*hist, True)],
@@ -317,22 +409,39 @@ def ring_paged_prefill(q, k, v, q_pos, kv_pos, k_pool, v_pool, block_tables,
     device, split contiguously over ``sp_axis``; k_pool/v_pool: per-shard
     pools (one layer) on the same axis; block_tables (n, B, npg_local);
     hist_len (B,).  History pages rotate through the ring beside the
-    chunk's own KV shards, never leaving their owner's pool.  Returns
-    (B, S, H, D) on q's device."""
-    _no_heads(head_axis=head_axis, kv_head_axis=kv_head_axis)
-    devices = mesh.positions(sp_axis)
-    if len(k_pool) != len(devices) or block_tables.shape[0] != len(devices):
+    chunk's own KV shards, never leaving their owner's pool.  With
+    ``head_axis`` (TP) each TP index rings its slice of the query heads
+    over its SP column.  ``kv_head_axis`` (the same axis, KVH dividing
+    it) marks the pool head-sharded: the chunk's KV is sliced alike and
+    each TP index reads its own slice of the pool; without it the pool
+    is whole and every position slices the KV heads its queries read.
+    Returns (B, S, H, D) on q's device."""
+    if kv_head_axis is not None and kv_head_axis != head_axis:
+        raise ValueError(f"kv_head_axis={kv_head_axis!r} needs the query "
+                         f"heads on the same axis, not {head_axis!r}")
+    lines = _lines(mesh, sp_axis, head_axis)
+    tp = len(lines)
+    if len(k_pool) != len(lines[0]) or block_tables.shape[0] != len(k_pool):
         raise ValueError(f"{len(k_pool)} pool shards and a table of "
                          f"{block_tables.shape[0]} rows over "
-                         f"{len(devices)} positions")
+                         f"{len(lines[0])} positions")
+    kps, vps = (_stripes(mesh, p, kv_head_axis) for p in (k_pool, v_pool))
     B = q.shape[0]
-    o, _ = ring_paged_prefill_local(
-        split(q, devices), split(k, devices), split(v, devices),
-        split(_broadcast_pos(q_pos, B), devices),
-        split(_broadcast_pos(kv_pos, B), devices),
-        k_pool, v_pool, [to(block_tables[i], d)
-                         for i, d in enumerate(devices)],
-        [to(hist_len, d) for d in devices], devices=devices, causal=causal,
-        window=window, softmax_scale=softmax_scale, impl=impl,
-        active_shards=active_shards)
-    return unsplit(o, q.device)
+    sharded = kv_head_axis is not None
+    kv_tp = tp if sharded else 1
+    outs = []
+    for t, devices in enumerate(lines):
+        o, _ = ring_paged_prefill_local(
+            split(head_part(q, t, tp, 2), devices),
+            split(head_part(k, t, kv_tp, 2), devices),
+            split(head_part(v, t, kv_tp, 2), devices),
+            split(_broadcast_pos(q_pos, B), devices),
+            split(_broadcast_pos(kv_pos, B), devices),
+            kps[t if sharded else 0], vps[t if sharded else 0],
+            [to(block_tables[i], d) for i, d in enumerate(devices)],
+            [to(hist_len, d) for d in devices], devices=devices,
+            causal=causal, window=window, softmax_scale=softmax_scale,
+            impl=impl, head_shard=(t, tp) if head_axis is not None
+            and not sharded else None, active_shards=active_shards)
+        outs.append(unsplit(o, q.device))
+    return torch.cat(outs, dim=2)

@@ -25,8 +25,13 @@ versions, and the page helpers of the serving engine's block pools.
   mesh position's device, addressed by per-shard local page ids.  Each
   shard's pages stay on its position; local id ``blocks_per_shard`` is
   the shard's scratch page, and routing a payload there says "not
-  mine".  The reference's are shard_map bodies (its flash_decode.py
-  sharded page ops); here one process loops over the shards.
+  mine".  A head-sharded pool (TP x SP) is a list over shards of lists
+  over TP indices, each holding a slice of the KV heads; the helpers
+  take each slice's share of a payload and put gathered slices back
+  side by side.  ``shard_restripe_kv_blocks`` is the one helper that
+  moves pages between shards (a live stripe resize).  The reference's
+  are shard_map bodies (its flash_decode.py sharded page ops); here one
+  process loops over the shards.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import _DTYPES, _check
+from repro_torch.launch.mesh import head_part, head_stripes
 
 # Position base for table columns past a sequence's allocation: far past
 # any real length, and small enough that base + slot never overflows int32.
@@ -94,57 +100,95 @@ def shard_scatter_kv_chunk(pools, local_pages, seq_kv: torch.Tensor,
     """Sharded ``scatter_kv_chunk``: ``local_pages`` (n_shards, npg_local)
     holds, in row s column j, the local id of the allocation's logical
     page ``j * active + s``.  Every shard sees the whole chunk's KV (nb,
-    L, KVH, D) and writes only the tokens whose page it owns (page p
-    belongs to shard ``p % active``); the rest go to its scratch page.
-    ``active`` (default: every shard) is the live stripe width — shards
-    past it own nothing."""
-    n_act = active or len(pools)
-    for s, pool in enumerate(pools):
-        dev = pool.device
-        page, scratch = pool.shape[2], pool.shape[1] - 1
-        pos = positions.to(dev).long()
-        pg = pos // page
-        phys = torch.where((pg % n_act) == s,
-                           _local_ids(local_pages, s, dev)[pg // n_act],
-                           torch.full_like(pg, scratch))
-        pool[:, phys, pos % page] = seq_kv.to(dev, pool.dtype)
+    L, KVH, D) (a head-sharded shard its head slice) and writes only the
+    tokens whose page it owns (page p belongs to shard ``p % active``);
+    the rest go to its scratch page.  ``active`` (default: every shard)
+    is the live stripe width — shards past it own nothing."""
+    rows = head_stripes(pools)
+    n_act = active or len(rows[0])
+    for t, row in enumerate(rows):
+        kv = head_part(seq_kv, t, len(rows), 2)
+        for s, pool in enumerate(row):
+            dev = pool.device
+            page, scratch = pool.shape[2], pool.shape[1] - 1
+            pos = positions.to(dev).long()
+            pg = pos // page
+            phys = torch.where((pg % n_act) == s,
+                               _local_ids(local_pages, s, dev)[pg // n_act],
+                               torch.full_like(pg, scratch))
+            pool[:, phys, pos % page] = kv.to(dev, pool.dtype)
 
 
 def shard_copy_kv_blocks(dst_pools, src_pools, src_local,
                          dst_local) -> None:
     """Sharded ``copy_kv_blocks``: per-shard (m,) local id lists, each
     pair on one shard (stripe alignment) — a position-local page copy
-    (admission between sharded pools)."""
-    for s, (dst, src) in enumerate(zip(dst_pools, src_pools)):
-        dst[:, _local_ids(dst_local, s, dst.device)] = src[
-            :, _local_ids(src_local, s, src.device)].to(dst.device,
-                                                        dst.dtype)
+    (admission between sharded pools of one head layout)."""
+    dst_rows, src_rows = head_stripes(dst_pools), head_stripes(src_pools)
+    if len(dst_rows) != len(src_rows):
+        raise ValueError(f"cannot copy pages between pools of "
+                         f"{len(src_rows)} and {len(dst_rows)} head slices")
+    for drow, srow in zip(dst_rows, src_rows):
+        for s, (dst, src) in enumerate(zip(drow, srow)):
+            dst[:, _local_ids(dst_local, s, dst.device)] = src[
+                :, _local_ids(src_local, s, src.device)].to(dst.device,
+                                                            dst.dtype)
 
 
 def shard_scatter_kv_blocks(pools, dst_local, pages: torch.Tensor) -> None:
     """Sharded ``scatter_kv_blocks``: ``pages`` (nb, n_shards, m, page,
     KVH, D) grouped per destination shard (host swap-in or promotion
-    payloads, or pages regrouped from an unsharded pool)."""
-    for s, pool in enumerate(pools):
-        pool[:, _local_ids(dst_local, s, pool.device)] = pages[:, s].to(
-            pool.device, pool.dtype)
+    payloads, or pages regrouped from an unsharded pool); a head-sharded
+    pool takes each shard's head slice of them."""
+    rows = head_stripes(pools)
+    for t, row in enumerate(rows):
+        part = head_part(pages, t, len(rows), 4)
+        for s, pool in enumerate(row):
+            pool[:, _local_ids(dst_local, s, pool.device)] = part[:, s].to(
+                pool.device, pool.dtype)
 
 
 def shard_gather_kv_blocks(pools, local, device) -> torch.Tensor:
     """Sharded ``gather_kv_blocks``: each shard reads its own pages; the
     result (nb, n_shards, m, page, KVH, D) on ``device``, in per-shard
-    grouping order (the caller reassembles logical order)."""
-    return torch.stack([pool[:, _local_ids(local, s, pool.device)]
-                        .to(device) for s, pool in enumerate(pools)],
-                       dim=1)
+    grouping order (the caller reassembles logical order), with a
+    head-sharded pool's slices put back side by side at full width."""
+    return torch.cat([
+        torch.stack([pool[:, _local_ids(local, s, pool.device)].to(device)
+                     for s, pool in enumerate(row)], dim=1)
+        for row in head_stripes(pools)], dim=4)
 
 
 def shard_copy_kv_block_within(pools, src_local, dst_local) -> None:
     """Sharded ``copy_kv_block_within``: per-shard (scalar) local ids —
     the owning shard copies the copy-on-write page, every other shard
     copies its scratch page onto itself."""
-    for s, pool in enumerate(pools):
-        pool[:, int(dst_local[s])] = pool[:, int(src_local[s])]
+    for row in head_stripes(pools):
+        for s, pool in enumerate(row):
+            pool[:, int(dst_local[s])] = pool[:, int(src_local[s])]
+
+
+def shard_restripe_kv_blocks(pools, send_local, recv_local) -> None:
+    """Cross-shard page migration for a live stripe resize — the one
+    operation that moves pages between shards (reference
+    ``shard_restripe_kv_blocks``, one ``all_to_all`` over the stripe
+    axis).  ``send_local`` is an (N, N, m) grid: row s holds, per
+    destination d, the local page ids shard s sends to d (padded with
+    its scratch id to m); ``recv_local[d, s]`` the local ids on d that
+    take shard s's payload, slot for slot.  Every shard first gathers
+    what it sends, grouped by destination; each payload then moves to
+    its destination's position (``.to(device)``), and each destination
+    writes what it received into its new slots.  Padded slots carry the
+    scratch page onto the scratch page.  A head-sharded pool moves each
+    stripe's head slice within its own stripe (one TP index)."""
+    for row in head_stripes(pools):
+        n, m = len(row), send_local.shape[2]
+        sent = [pool[:, _local_ids(send_local, s, pool.device).reshape(-1)]
+                for s, pool in enumerate(row)]        # (nb, N * m, ...)
+        for d, pool in enumerate(row):
+            got = torch.cat([sent[s][:, d * m:(d + 1) * m].to(pool.device)
+                             for s in range(n)], dim=1)
+            pool[:, _local_ids(recv_local, d, pool.device).reshape(-1)] = got
 
 
 def fused_append_attend(k_pool: torch.Tensor, v_pool: torch.Tensor,

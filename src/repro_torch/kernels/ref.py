@@ -21,6 +21,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import head_stripes
+
 NEG_INF = -1e30
 
 
@@ -130,18 +132,23 @@ def sharded_pool_view(pool, tables: torch.Tensor) -> torch.Tensor:
 
     pool: the per-shard pools, a sequence of (blocks_per_shard + 1, page,
     KVH, D) tensors on their positions' devices (or one stacked
-    (n_shards, ...) tensor); tables: (n_shards, B, npg_local) local page
-    ids, where row s column j holds the sequence's logical page ``j *
-    n_shards + s`` (striped layout).  Returns (B, npg_local * n_shards *
-    page, KVH, D) on the tables' device, with tokens at their logical flat
-    positions — scratch-padded table entries land at positions at/past
-    the valid length, so the usual ``idx < length`` masking covers
-    them."""
+    (n_shards, ...) tensor; a head-sharded pool's shard is a list of its
+    head slices, read side by side); tables: (n_shards, B, npg_local)
+    local page ids, where row s column j holds the sequence's logical
+    page ``j * n_shards + s`` (striped layout).  Returns (B, npg_local *
+    n_shards * page, KVH, D) on the tables' device, with tokens at their
+    logical flat positions — scratch-padded table entries land at
+    positions at/past the valid length, so the usual ``idx < length``
+    masking covers them."""
     n, B, npg = tables.shape
-    g = torch.stack([pool[s][tables[s].to(pool[s].device).long()]
-                     .to(tables.device) for s in range(n)],
-                    dim=2)                          # (B, npg, n, page, ...)
-    return g.reshape(B, npg * n * g.shape[3], *g.shape[4:])
+
+    def view(stripe):
+        g = torch.stack([stripe[s][tables[s].to(stripe[s].device).long()]
+                         .to(tables.device) for s in range(n)],
+                        dim=2)                      # (B, npg, n, page, ...)
+        return g.reshape(B, npg * n * g.shape[3], *g.shape[4:])
+    views = [view(st) for st in head_stripes(pool)]
+    return views[0] if len(views) == 1 else torch.cat(views, dim=-2)
 
 
 def paged_decode_attention_ref(

@@ -13,14 +13,23 @@ runs a 4-position mesh as four logical positions on ``cuda:0``).
   (reference ``launch/mesh.py``): ``"prefill"`` (ring attention over
   ``sp_axis``), ``"decode"`` (split-KV over ``kv_split_axis``) and
   ``"serve_paged"`` (both on the "data" axis, so a page's stripe position
-  lives on the same position in the prefill and the decode pool).
+  lives on the same position in the prefill and the decode pool).  A
+  mesh with a "model" axis of more than one position (the reference's
+  ``"data" x "model"``) also gets ``tp_axis="model"``: attention heads
+  and, where the KV heads divide it, the page pools shard over it (TP x
+  SP).  A 1-D "data" mesh has no TP axis.
 * The collectives the islands use.  A sharded tensor is a list of
   per-position tensors, each on its position's device; ``ring_shift`` is
   ``lax.ppermute`` with the ring permutation j -> j + 1, ``all_gather``
   stacks the parts on one device, and the axis size and index
   (``lax.psum(1)``, ``lax.axis_index``) are the length of
-  ``Mesh.positions(axis)`` and the index into it.  ``split`` and ``unsplit``
-  place a whole tensor's contiguous sequence shards and gather them back.
+  ``Mesh.positions(axis)`` and the index into it.  On a 2-D mesh
+  ``Mesh.positions(axis, other=i)`` is one line of it: an SP column at a
+  fixed TP index, or a TP row at a fixed SP index, and the collectives
+  run along that line.  ``split`` and ``unsplit`` place a whole tensor's
+  contiguous sequence shards and gather them back; ``head_part`` is a
+  tensor's slice of the heads at one TP index, and ``head_stripes`` a
+  head-sharded pool's stripe at each.
 
 Moving a part to a position is ``.to(device, non_blocking=True)``, a
 no-op when it is already there.  Nothing here sets a global mesh, and the
@@ -57,13 +66,22 @@ class Mesh:
                              f"devices, got {len(self.devices)}")
         self.shape = dict(zip(self.axis_names, sizes))
 
-    def positions(self, axis: str) -> Tuple[torch.device, ...]:
-        """The devices along ``axis`` (every other axis at index 0), in
-        axis order: entry i is the position with ``axis_index == i``."""
-        i = self.axis_names.index(axis)
-        stride = math.prod(list(self.shape.values())[i + 1:])
-        return tuple(self.devices[j * stride]
-                     for j in range(self.shape[axis]))
+    def positions(self, axis: str, **at: int) -> Tuple[torch.device, ...]:
+        """The devices along ``axis``, every other axis at the index ``at``
+        names (default 0), in axis order: entry i is the position with
+        ``axis_index == i`` on that line of the mesh."""
+        for a, j in at.items():
+            if a == axis or not 0 <= j < self.shape[a]:
+                raise ValueError(f"{a}={j} does not fix a line along "
+                                 f"{axis!r} of {self}")
+        sizes = list(self.shape.values())
+        out = []
+        for j in range(self.shape[axis]):
+            flat = 0
+            for a, n in zip(self.axis_names, sizes):
+                flat = flat * n + (j if a == axis else at.get(a, 0))
+            out.append(self.devices[flat])
+        return tuple(out)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, "
@@ -94,9 +112,10 @@ def make_context(mesh: Mesh, mode: str, *, impl: Optional[str] = None,
     decode (split-KV over ``kv_split_axis``), and the engine's pools
     stripe over those axes (``ExecContext.pool_axis``).  Both roles ride
     the "data" axis so prefill-pool pages hand off to decode pools
-    position-locally.  The reference's ``tp_axis`` ("model") is not
-    ported: heads are never sharded here."""
-    common = dict(mesh=mesh, impl=impl, window=window)
+    position-locally.  ``tp_axis`` is "model" where the mesh has that
+    axis with more than one position (heads shard over it), else None."""
+    tp = "model" if mesh.shape.get("model", 1) > 1 else None
+    common = dict(mesh=mesh, tp_axis=tp, impl=impl, window=window)
     if mode == "prefill":
         return ExecContext(sp_axis="data", **common)
     if mode == "decode":
@@ -146,3 +165,24 @@ def unsplit(xs: Sequence[torch.Tensor],
             device: torch.device) -> torch.Tensor:
     """The inverse of ``split``: the shards concatenated on ``device``."""
     return torch.cat([to(x, device) for x in xs], dim=1)
+
+
+def head_stripes(pools) -> List[List[torch.Tensor]]:
+    """The stripes of a sharded page pool, one per head slice.  A
+    head-sharded pool (TP x SP) is a list over shards of lists over TP
+    indices, ``pools[s][t]`` holding head slice t of shard s's pages; it
+    gives ``[pools[s][t] for s]`` for each t.  A striped pool (a list of
+    per-shard tensors) is its own one stripe."""
+    if isinstance(pools[0], (list, tuple)):
+        return [[p[t] for p in pools] for t in range(len(pools[0]))]
+    return [list(pools)]
+
+
+def head_part(x: torch.Tensor, t: int, n: int, dim: int) -> torch.Tensor:
+    """Slice ``t`` of ``n`` equal slices of ``x``'s heads (dim ``dim``):
+    what TP index ``t`` of an ``n``-wide head axis holds.  A view; the
+    islands make it contiguous where a kernel reads it."""
+    if n == 1:
+        return x
+    w = x.shape[dim] // n
+    return x.narrow(dim, t * w, w)

@@ -20,8 +20,12 @@ and any dense history, or, with a striped paged history (3-dim tables),
 the ring; other chunks over a striped history take the gather fallback
 of ``ops.paged_prefill_attention``.  A striped paged decode cache runs
 the split-KV island ``sharded_paged_decode`` (K1 per shard, the append
-on the owning shard).  An unsharded pool under an active split or ring
-axis raises ``ValueError``: the layouts must agree.  Dense decode under
+on the owning shard).  With ``ctx.tp_axis`` (TP x SP, reference
+``_qkv_specs``) the query heads shard over it where they divide it, and
+the KV heads and the pools too where KVH divides it; each TP index runs
+the island on its heads (K3 / K1 per SP and TP position).  An unsharded
+pool under an active split or ring axis raises ``ValueError``: the
+layouts must agree.  Dense decode under
 ``ctx.kv_split_axis`` (``split_kv_decode``) is a later slice.
 ``cross_attention`` is the encoder-decoder's cross attention over the
 encoder's K/V, with the ``x_``-prefixed weights: "cross" in prefill and
@@ -69,6 +73,16 @@ def kv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig, prefix: str = ""
 def out_proj(o: torch.Tensor, p: dict, prefix: str = "") -> torch.Tensor:
     B, S = o.shape[:2]
     return o.reshape(B, S, -1) @ p[prefix + "wo"]
+
+
+def _head_axes(cfg: ModelConfig, ctx: ExecContext):
+    """(query head axis, KV head axis) of the islands: ``ctx.tp_axis``
+    for each head count that divides it (reference ``_qkv_specs``).  The
+    KV axis is the pools' head axis (``ExecContext.pool_head_axis``), and
+    counts only with the query heads on it."""
+    h_ax = ctx.shardable(cfg.padded_heads, ctx.tp_axis)
+    kv_ax = ctx.pool_head_axis(cfg.n_kv_heads)
+    return h_ax, kv_ax if h_ax is not None else None
 
 
 def cross_attention(x: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -133,9 +147,13 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
             if ctx.kv_split_axis is None or ctx.mesh is None:
                 raise ValueError("a sharded paged cache needs "
                                  "ctx.kv_split_axis and a mesh")
+            # a head-sharded pool (KVH dividing the TP axis) runs the
+            # island per TP index on its heads; a pool replicated over TP
+            # runs it on every head (reference attention.py:120-130)
             o, k_pool, v_pool = sharded_paged_decode(
                 q[:, 0], cache["k"], cache["v"], bt, cache_len,
-                mesh=ctx.mesh, split_axis=ctx.kv_split_axis, window=window,
+                mesh=ctx.mesh, split_axis=ctx.kv_split_axis,
+                head_axis=_head_axes(cfg, ctx)[1], window=window,
                 impl=ctx.impl, k_new=k[:, 0], v_new=v[:, 0],
                 active_shards=ctx.active_pool_shards)
             return out_proj(o[:, None], p), {"k": k_pool, "v": v_pool,
@@ -212,10 +230,12 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
         if bt.dim() == 3 and sp_n > 1 and S % sp_n == 0:
             # the chunk's queries/KV ride the ring and each shard's
             # history pages rotate along with them
+            h_ax, kv_ax = _head_axes(cfg, ctx)
             o = ring_paged_prefill(
                 q, k, v, pos2d, pos2d, history["k_pool"], history["v_pool"],
                 bt, history["len"], mesh=ctx.mesh, sp_axis=ctx.sp_axis,
-                causal=causal, window=window, impl=ctx.impl,
+                head_axis=h_ax, kv_head_axis=kv_ax, causal=causal,
+                window=window, impl=ctx.impl,
                 active_shards=ctx.active_pool_shards)
         else:
             # one position, or a chunk that does not divide over the
@@ -237,8 +257,10 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
             hpos = hpos[None].expand(B, hpos.shape[0])
         kv_pos = torch.cat([hpos, pos2d], dim=1)
     if sp_n > 1 and S % sp_n == 0 and k.shape[1] % sp_n == 0:
+        h_ax, kv_ax = _head_axes(cfg, ctx)
         o = ring_attention(q, k, v, pos2d, kv_pos, mesh=ctx.mesh,
-                           sp_axis=ctx.sp_axis, causal=causal, window=window,
+                           sp_axis=ctx.sp_axis, head_axis=h_ax,
+                           kv_head_axis=kv_ax, causal=causal, window=window,
                            impl=ctx.impl)
     else:
         o = ops.attention(q, k, v, pos2d, kv_pos, causal=causal,

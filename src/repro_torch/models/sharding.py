@@ -5,9 +5,9 @@ its shard_map islands.  The port's context carries the roles the serving
 path reads: ``mesh`` (a ``launch.mesh.Mesh`` driven by this one process,
 or None for one device), ``sp_axis`` (ring attention and the prefill
 pool's stripe), ``kv_split_axis`` (split-KV paged decode and the decode
-pool's stripe) and ``active_pool_shards`` (the live stripe width), with
-the reference's helpers over them.  ``tp_axis`` stays None: heads are
-never sharded here, so ``pool_head_axis`` answers None.  Outside the
+pool's stripe), ``tp_axis`` (attention heads, and the KV heads of the
+pools where they divide it: TP x SP) and ``active_pool_shards`` (the live
+stripe width), with the reference's helpers over them.  Outside the
 islands activations live whole on ``device``, position 0's device of the
 mesh, as a replicated GSPMD array would.
 
@@ -51,7 +51,7 @@ class ExecContext:
     mesh: Optional["Mesh"] = None
     sp_axis: Optional[str] = None        # sequence (ring attention)
     kv_split_axis: Optional[str] = None  # split-KV paged decode
-    tp_axis: None = None                 # heads are not sharded here
+    tp_axis: Optional[str] = None        # attention heads (TP)
     # live stripe width of an elastically restriped paged pool (None: all
     # of its physical shards)
     active_pool_shards: Optional[int] = None
@@ -72,7 +72,7 @@ class ExecContext:
             raise ValueError(f"ExecContext.device {dev} must be the mesh's "
                              f"position 0 device {first}")
         object.__setattr__(self, "device", dev)
-        for ax in (self.sp_axis, self.kv_split_axis):
+        for ax in (self.sp_axis, self.kv_split_axis, self.tp_axis):
             if ax is not None and self.mesh is not None \
                     and ax not in self.mesh.axis_names:
                 raise ValueError(f"axis {ax!r} is not an axis of "
@@ -84,6 +84,13 @@ class ExecContext:
             return 1
         return self.mesh.shape[axis]
 
+    def shardable(self, dim: int, axis: Optional[str]) -> Optional[str]:
+        """``axis`` if ``dim`` divides evenly over it (and it has more than
+        one position), else None."""
+        n = self.axis_size(axis)
+        return axis if (axis is not None and n > 1 and dim % n == 0) \
+            else None
+
     # ------------------------------------------------- paged pool sharding
     def pool_axis(self, role: str) -> Optional[str]:
         """Mesh axis a paged KV pool of the given role stripes over, or
@@ -94,10 +101,13 @@ class ExecContext:
             return None
         return ax
 
-    def pool_head_axis(self, n_kv_heads: int) -> None:
-        """Mesh axis a pool's KV-head dim is sharded over: none, since
-        heads are not sharded here (TP x SP is a later slice)."""
-        return None
+    def pool_head_axis(self, n_kv_heads: int) -> Optional[str]:
+        """Mesh axis a paged pool's KV-head dim is sharded over on top of
+        its SP stripe (the TP x SP layout), or None for a pool replicated
+        over TP: ``tp_axis`` when ``n_kv_heads`` divides it.  The same
+        rule picks the attention islands' KV head axis
+        (models/attention.py), so the pools and their readers agree."""
+        return self.shardable(n_kv_heads, self.tp_axis)
 
     def pool_shards(self, role: str) -> int:
         """PHYSICAL shard count for a paged pool of the given role (1 =

@@ -8,7 +8,8 @@ reference's tree: pattern position -> {"self": {...}} with leaves stacked
 over n_blocks; a paged pool leaf is (n_blocks, n_pages, page, KVH, D) and
 its per-block slice is a view, so the fused decode tick writes the live
 pool in place.  A sharded pool leaf is a list of per-shard pools (one per
-mesh position), sliced shard by shard.
+mesh position; a head-sharded shard a list of its head slices), sliced
+shard by shard.
 
 Modes: "train" (logits for every position), "prefill" (logits at the last
 position + the chunk's caches), "decode" (one token + updated caches).
@@ -101,7 +102,7 @@ def _slice(tree, b: int):
     if isinstance(tree, dict):
         return {k: _slice(v, b) for k, v in tree.items()}
     if isinstance(tree, list):          # a sharded pool: slice each shard
-        return [t[b] for t in tree]
+        return [_slice(t, b) for t in tree]
     return tree[b]
 
 

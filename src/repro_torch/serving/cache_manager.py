@@ -47,10 +47,9 @@ corrupt live pages.  All pool writes mutate the pool tensors in place
 
 In this package ``BlockManager`` is the reference's, unchanged (its striped,
 head-sharded and restripe accounting included).  ``PagedKVCache`` ports
-the unsharded layout and the striped one below; a sharded pool is a list
-of per-shard pools, one per mesh position, driven by this one process.
-The head-sharded layout and the live restripe are later slices of the
-port.
+the unsharded layout, the striped one, the head-sharded one and the live
+restripe below; a sharded pool is a list of per-shard pools, one per mesh
+position, driven by this one process.
 
 **Sequence-parallel sharded pools** (``kv_shards > 1``): the pool splits
 into one pool per position of a mesh axis — per layer a list of
@@ -72,20 +71,22 @@ scratch id stays ``total_blocks``.
 
 **Head-sharded pools** (``head_axis``, the TP×SP layout): on top of the
 SP stripe the KVH dim is sharded over the TP mesh axis whenever it
-divides — each device stores only ``KVH / kv_head_shards`` heads of
-every page it owns, so per-device KV bytes drop exactly tp-fold for GQA
-configs.  Purely a placement change: global shapes, block ids and the
-stripe invariant are untouched; shard_map in/out specs carry the head
-axis so chunk payloads are sliced at scatter and gathers reassemble
-full-width pages for the host tier.
+divides — each position stores only ``KVH / kv_head_shards`` heads of
+every page its shard owns, so per-position KV bytes drop exactly
+tp-fold.  Purely a placement change: block ids and the stripe invariant
+are untouched.  A pool leaf is then a list over shards of lists over TP
+indices (``pools[s][t]`` on the mesh position (s, t)); the page ops
+slice chunk payloads per head slice and put gathered slices back side
+by side, so the host tier sees full-width pages.
 
 **Elastic striping** (``active_shards <= kv_shards``): the physical pool
 layout is immutable, but the *stripe* — how many shards new pages spread
 over — can shrink and grow at runtime.  ``BlockManager.restripe(n)``
 remaps exactly the live pages whose owning shard changes under the new
 stripe invariant (``i % n``) and returns the (old, new) global-id pairs;
-``PagedKVCache.restripe`` then moves those pages between devices in one
-``all_to_all`` collective per layer (the ONLY time pages cross shards).
+``PagedKVCache.restripe`` then moves those pages between positions in
+one exchange per layer and part (the reference's ``all_to_all``; the
+ONLY time pages cross shards).
 Shards at index >= active_shards idle: their free blocks are never
 taken, and the attention islands mask them to zero-length so their LSE
 contributions vanish.  This is what lets the engine resize sequence
@@ -694,6 +695,13 @@ class PagedKVCache:
     keeps every page on its shard (``flash_decode.shard_*``).  ``device``
     is then position 0's device, where block tables and gathered pages
     land.
+
+    ``head_axis`` (TP, honoured on a sharded pool when KVH divides the
+    axis) shards the KVH dim too: each leaf is then a list over shards
+    of lists over TP indices, ``pools[s][t]`` (n_blocks,
+    blocks_per_shard + 1, block_size, KVH / kv_head_shards, D) on the
+    mesh position at shard s and TP index t.  Per-position pool bytes
+    drop exactly ``kv_head_shards``-fold; block ids do not change.
     """
 
     def __init__(self, cfg, total_blocks: int, block_size: int,
@@ -702,9 +710,6 @@ class PagedKVCache:
                  head_axis: Optional[str] = None, device=None):
         import torch
         from repro_torch.models.sharding import resolve_device
-        if head_axis is not None:
-            raise NotImplementedError(
-                "head-sharded pools (TPxSP) are a later slice of the port")
         self.cfg = cfg
         self.total_blocks = total_blocks
         self.block_size = block_size
@@ -737,10 +742,22 @@ class PagedKVCache:
                                  f"not {kv_shards}")
             self.device = self.shard_devices[0]
             self.blocks_per_shard = total_blocks // kv_shards
+            if (head_axis is not None and mesh.shape[head_axis] > 1
+                    and kvh % mesh.shape[head_axis] == 0):
+                self.head_axis = head_axis
+                self.kv_head_shards = mesh.shape[head_axis]
             # one scratch page PER SHARD (local id blocks_per_shard)
-            shape = (nb, self.blocks_per_shard + 1, block_size, kvh, dh)
-            make = lambda: [torch.zeros(shape, dtype=dt, device=d)
-                            for d in self.shard_devices]
+            shape = (nb, self.blocks_per_shard + 1, block_size,
+                     kvh // self.kv_head_shards, dh)
+            if self.head_axis is None:
+                make = lambda: [torch.zeros(shape, dtype=dt, device=d)
+                                for d in self.shard_devices]
+            else:
+                # pools[s][t] on the position at shard s, TP index t
+                rows = [mesh.positions(head_axis, **{shard_axis: s})
+                        for s in range(kv_shards)]
+                make = lambda: [[torch.zeros(shape, dtype=dt, device=d)
+                                 for d in row] for row in rows]
         self.pools = {str(i): {"k": make(), "v": make()}
                       for i in self.attn_layers}
 
@@ -976,14 +993,44 @@ class PagedKVCache:
                                      int(src_block), int(dst_block))
 
     def restripe(self, pairs: Sequence[Tuple[int, int]]) -> None:
-        """Move the pages of a live stripe resize to their new shards
-        (``BlockManager.restripe``'s pairs).  An unsharded pool has none
-        to move; the cross-shard move itself (the reference's
-        ``shard_restripe_kv_blocks``) is a later slice of the port."""
-        if pairs:
-            raise NotImplementedError(
-                "elastic restripe (shard_restripe_kv_blocks, "
-                "PagedKVCache.restripe) is a later slice of the port")
+        """Move the pages named by ``BlockManager.restripe``'s remap to
+        their new shards — the physical half of a live stripe resize, and
+        the only operation that ever moves a page across shards.
+
+        ``pairs`` is [(old_gid, new_gid), ...]; every pair is cross-shard
+        by construction.  One exchange per layer and part
+        (``flash_decode.shard_restripe_kv_blocks``, the reference's
+        ``all_to_all``): each shard gathers the pages it sends, grouped
+        by destination and padded with its scratch id to the largest
+        pairwise count, the payloads move, and each shard writes what it
+        received into the new local slots (a head-sharded pool moves each
+        head slice within its own stripe).  The engine calls
+        ``BlockManager.restripe`` and this back to back in one event, so
+        the ticks before and after see consistent pools.  An unsharded
+        pool has nothing to move."""
+        if not pairs or self.kv_shards == 1:
+            return
+        from repro_torch.kernels.flash_decode import shard_restripe_kv_blocks
+        n, bps = self.kv_shards, self.blocks_per_shard
+        send: List[List[List[int]]] = [[[] for _ in range(n)]
+                                       for _ in range(n)]
+        recv: List[List[List[int]]] = [[[] for _ in range(n)]
+                                       for _ in range(n)]
+        for old, new in pairs:
+            so, lo = divmod(int(old), bps)
+            sn, ln = divmod(int(new), bps)
+            send[so][sn].append(lo)
+            recv[sn][so].append(ln)
+        m = max(len(send[s][d]) for s in range(n) for d in range(n)) or 1
+        snd = np.full((n, n, m), bps, np.int32)
+        rcv = np.full((n, n, m), bps, np.int32)
+        for s in range(n):
+            for d in range(n):
+                snd[s, d, :len(send[s][d])] = send[s][d]
+                rcv[d, s, :len(recv[d][s])] = recv[d][s]
+        for i in self.attn_layers:
+            for part in ("k", "v"):
+                shard_restripe_kv_blocks(self.pools[str(i)][part], snd, rcv)
 
     # -------------------------------------------------------------- decode
     def adopt(self, new_caches: dict) -> None:

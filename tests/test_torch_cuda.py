@@ -998,3 +998,93 @@ def test_sharded_islands_on_card(dtype):
                                           impl="ref"))
     close(ops.paged_decode_attention(qd, kp, vp, bt, hist),
           ops.paged_decode_attention(qd, kp, vp, bt, hist, impl="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_sliced_islands_and_restripe_on_card(dtype):
+    """TP x SP on a 2 x 2 ("data" x "model") mesh of the one card: the
+    split-KV paged decode over a head-sharded pool (K1 once per SP and TP
+    position) and the ring-paged prefill and ring attention per head
+    slice (K3 per position and ring step) against the plain path on the
+    same positions, at Llama's GQA group (H 8 over KVH 2 per slice);
+    then shard_restripe_kv_blocks across the positions of the card
+    against the same exchange on CPU copies (bit-equal)."""
+    dev = _card()
+    import numpy as np
+    from repro_torch.core import ring_attention as ring
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import (paged_flash_decode,
+                                                  shard_restripe_kv_blocks)
+    from repro_torch.launch.mesh import make_mesh
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda")
+    g = torch.Generator().manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, dt)
+
+    def close(a, b):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+
+    B, H, KVH, D, page, npg, bps = 2, 16, 4, 128, 16, 9, 10
+    # pools[s][t]: shard s's pages, head slice t (KVH / 2 heads)
+    kp = [[rnd(bps + 1, page, KVH // 2, D) for _ in range(2)]
+          for _ in range(2)]
+    vp = [[rnd(bps + 1, page, KVH // 2, D) for _ in range(2)]
+          for _ in range(2)]
+    cols = -(-npg // 2)
+    bt = torch.full((2, B, cols), bps, dtype=torch.int32)
+    for s in range(2):
+        perm = np.random.default_rng(s).permutation(bps)
+        for b in range(B):
+            for j in range(cols):
+                if j * 2 + s < npg:
+                    bt[s, b, j] = int(perm[b * cols + j])
+    bt = bt.to(dev)
+    lengths = torch.tensor([0, 135], dtype=torch.int32, device=dev)
+    qd, kn, vn = rnd(B, H, D), rnd(B, KVH, D), rnd(B, KVH, D)
+    ref_k = [[x.clone() for x in s] for s in kp]
+    ref_v = [[x.clone() for x in s] for s in vp]
+    before = paged_flash_decode.launches
+    o, _, _ = ring.sharded_paged_decode(
+        qd, kp, vp, bt, lengths, mesh=mesh, split_axis="data",
+        head_axis="model", k_new=kn, v_new=vn)
+    assert paged_flash_decode.launches == before + 4
+    po, _, _ = ring.sharded_paged_decode(
+        qd, ref_k, ref_v, bt, lengths, mesh=mesh, split_axis="data",
+        head_axis="model", k_new=kn, v_new=vn, impl="ref")
+    close(o, po)
+    for a, b in zip(sum(kp + vp, []), sum(ref_k + ref_v, [])):
+        assert torch.equal(a[:-1], b[:-1])
+    hist = torch.tensor([37, 130], dtype=torch.int32, device=dev)
+    Sq = 32
+    qc, kc, vc = rnd(B, Sq, H, D), rnd(B, Sq, KVH, D), rnd(B, Sq, KVH, D)
+    qpos = hist[:, None] + torch.arange(Sq, dtype=torch.int32, device=dev)
+    kw = dict(mesh=mesh, sp_axis="data", head_axis="model",
+              kv_head_axis="model")
+    before = flash_attention.launches
+    got = ring.ring_paged_prefill(qc, kc, vc, qpos, qpos, kp, vp, bt, hist,
+                                  **kw)
+    assert flash_attention.launches == before + 2 * 2 * 2 * 2
+    close(got, ring.ring_paged_prefill(qc, kc, vc, qpos, qpos, kp, vp, bt,
+                                       hist, impl="ref", **kw))
+    before = flash_attention.launches
+    got = ring.ring_attention(qc, kc, vc, qpos, qpos, **kw)
+    assert flash_attention.launches == before + 2 * 2 * 2
+    close(got, ring.ring_attention(qc, kc, vc, qpos, qpos, impl="ref", **kw))
+    # a restripe exchange: 3 pages shard 0 -> 1 and 1 page 1 -> 0
+    pools = [torch.randn(3, bps + 1, page, 2, D, generator=g).to(dev, dt)
+             for _ in range(2)]
+    host = [p.cpu() for p in pools]
+    send = np.full((2, 2, 3), bps, np.int32)
+    recv = np.full((2, 2, 3), bps, np.int32)
+    send[0, 1], recv[1, 0] = [1, 4, 7], [0, 2, 9]
+    send[1, 0, 0], recv[0, 1, 0] = 5, 3
+    shard_restripe_kv_blocks(pools, send, recv)
+    shard_restripe_kv_blocks(host, send, recv)
+    for a, b in zip(pools, host):
+        assert torch.equal(a[:, :-1].cpu(), b[:, :-1])
+    assert torch.equal(pools[1][:, 2].cpu(), host[1][:, 2])

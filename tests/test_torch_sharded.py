@@ -83,6 +83,32 @@ def test_mesh_positions_contexts_and_collectives():
     assert torch.equal(unsplit(parts, devs[0]), x)
 
 
+def test_mesh_2d_lines_and_tp_roles():
+    """A "data" x "model" mesh: each line along one axis at a fixed index
+    of the other, row-major; serve_paged puts the TP role on "model"
+    when it has more than one position, and the heads shard over it only
+    where they divide it."""
+    # device names tell the positions apart (nothing runs on them)
+    m = Mesh(("data", "model"), (2, 4), [f"cuda:{i}" for i in range(8)])
+
+    def idx(line):
+        return tuple(d.index for d in line)
+
+    assert idx(m.positions("data")) == (0, 4)
+    assert idx(m.positions("data", model=3)) == (3, 7)
+    assert idx(m.positions("model", data=1)) == (4, 5, 6, 7)
+    with pytest.raises(ValueError):
+        m.positions("data", data=1)
+    ctx = make_context(make_mesh((2, 4), ("data", "model"), device="cpu"),
+                       "serve_paged")
+    assert (ctx.sp_axis, ctx.kv_split_axis, ctx.tp_axis) == ("data", "data",
+                                                           "model")
+    assert ctx.shardable(8, "model") == "model"
+    assert ctx.shardable(6, "model") is None
+    assert ctx.pool_head_axis(4) == "model" and ctx.pool_head_axis(2) is None
+    assert make_context(_mesh(4, "data"), "serve_paged").tp_axis is None
+
+
 # --------------------------------------------------------------- ring
 @pytest.mark.parametrize("window", [None, 13])
 def test_ring_attention_matches_reference(window):
@@ -255,6 +281,90 @@ def test_ring_paged_prefill_matches_reference(window):
     _close(got, np.concatenate(list(np.asarray(o_j)), axis=1))
 
 
+# ------------------------------------------------------- TP x SP islands
+def _head_layout(pools, kv_ax, tp):
+    """numpy striped pools (n, bps + 1, page, KVH, D) as the port's
+    per-shard list; head-sharded, each shard a list of its tp head
+    slices."""
+    if kv_ax is None:
+        return [_t(x) for x in pools]
+    w = pools.shape[3] // tp
+    return [[_t(x[:, :, t * w:(t + 1) * w]) for t in range(tp)]
+            for x in pools]
+
+
+@pytest.mark.parametrize("KVH", [4, 2], ids=["head_sharded", "replicated"])
+def test_head_sharded_islands_match_reference(KVH):
+    """dist_progs/gqa_head_shard_prog.py on a 2 x 4 ("data" x "model")
+    CPU mesh, H 8: KVH 4 divides the TP axis and the pool is head-sharded
+    (each position 1 KV head, per-position pool bytes exactly 1 / (sp *
+    tp) of the whole); KVH 2 does not, and the pool stays whole, each
+    ring call slicing the KV heads its query heads read.  The fused
+    sharded decode (and with a window), ring_paged_prefill and
+    ring_attention against the reference's decode_attention_ref /
+    attention_ref on the same numpy inputs; atol 1e-5."""
+    rng = np.random.default_rng(0)
+    B, H, D, page, npg, n_sp, tp = 2, 8, 16, 8, 4, 2, 4
+    S = npg * page
+    mesh = make_mesh((n_sp, tp), ("data", "model"), device="cpu")
+    ctx = make_context(mesh, "serve_paged")
+    kv_ax = ctx.pool_head_axis(KVH)
+    assert kv_ax == ("model" if KVH == 4 else None)
+    k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    kp, vp, bt = stripe_pool(np.random.default_rng(KVH), n_sp, k, v, page)
+    tkp, tvp = _head_layout(kp, kv_ax, tp), _head_layout(vp, kv_ax, tp)
+    part = tkp[0][0] if kv_ax else tkp[0]
+    assert part.nbytes * n_sp * (tp if kv_ax else 1) == kp.nbytes
+
+    lengths = np.asarray([13, 29], np.int32)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kn = rng.standard_normal((B, KVH, D)).astype(np.float32)
+    vn = rng.standard_normal((B, KVH, D)).astype(np.float32)
+    o, k_out, _ = t_ring.sharded_paged_decode(
+        _t(q), tkp, tvp, _t(bt), _t(lengths), mesh=mesh, split_axis="data",
+        head_axis=kv_ax, k_new=_t(kn), v_new=_t(vn))
+    assert k_out is tkp
+    k_ref, v_ref = k.copy(), v.copy()
+    k_ref[np.arange(B), lengths] = kn
+    v_ref[np.arange(B), lengths] = vn
+    _close(o, j_decode_ref(*map(jnp.asarray, (q, k_ref, v_ref, lengths + 1))))
+    assert torch.equal(sharded_pool_view(tkp, _t(bt)), _t(k_ref))
+    o_w, _, _ = t_ring.sharded_paged_decode(
+        _t(q), tkp, tvp, _t(bt), _t(lengths + 1), mesh=mesh,
+        split_axis="data", head_axis=kv_ax, window=11)
+    _close(o_w, j_decode_ref(*map(jnp.asarray,
+                                  (q, k_ref, v_ref, lengths + 1)),
+                             window=11))
+
+    Sq = 4 * n_sp
+    hist = np.asarray([S - 5, 17], np.int32)
+    qc = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    kc = rng.standard_normal((B, Sq, KVH, D)).astype(np.float32)
+    vc = rng.standard_normal((B, Sq, KVH, D)).astype(np.float32)
+    pos = np.stack([np.arange(h, h + Sq, dtype=np.int32) for h in hist])
+    got = t_ring.ring_paged_prefill(
+        _t(qc), _t(kc), _t(vc), _t(pos), _t(pos), tkp, tvp, _t(bt),
+        _t(hist), mesh=mesh, sp_axis="data", head_axis="model",
+        kv_head_axis=kv_ax)
+    hpos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
+    want = j_attention_ref(
+        jnp.asarray(qc), jnp.concatenate([k_ref, kc], 1),
+        jnp.concatenate([v_ref, vc], 1), jnp.asarray(pos),
+        jnp.concatenate([hpos, pos], 1), causal=True,
+        kv_valid=jnp.concatenate([hpos < hist[:, None],
+                                  np.ones((B, Sq), bool)], 1))
+    _close(got, want)
+    got = t_ring.ring_attention(_t(qc), _t(kc), _t(vc), _t(pos), _t(pos),
+                                mesh=mesh, sp_axis="data", head_axis="model",
+                                kv_head_axis=kv_ax)
+    _close(got, j_attention_ref(*map(jnp.asarray, (qc, kc, vc, pos, pos))))
+    with pytest.raises(ValueError, match="head-sharded pool"):
+        t_ring.sharded_paged_decode(
+            _t(q), tkp, tvp, _t(bt), _t(lengths), mesh=mesh,
+            split_axis="data", head_axis=None if kv_ax else "model")
+
+
 # ---------------------------------------------------- striped PagedKVCache
 def test_striped_pool_page_ops_keep_logical_content():
     """The striped PagedKVCache against an unsharded one fed the same
@@ -317,8 +427,15 @@ def test_striped_pool_page_ops_keep_logical_content():
     for p in ("k", "v"):
         assert torch.equal(sh3.read_blocks(blocks)["0"][p],
                            flat.read_blocks(blocks)["0"][p])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sh.restripe([(blocks[0], dst[1])])
+    # a live 4 -> 2 restripe moves the pages whose shard changes; their
+    # content at the new ids is the old ids' (the unsharded pool never
+    # restripes: its copy still holds them at the old ids)
+    pairs = bm.restripe(2)
+    assert pairs and all(bm.shard_of(o) != bm.shard_of(w) for o, w in pairs)
+    sh.restripe(pairs)
+    for p in ("k", "v"):
+        assert torch.equal(sh.read_blocks([w for _, w in pairs])["0"][p],
+                           flat.read_blocks([o for o, _ in pairs])["0"][p])
 
 
 # ------------------------------------------------------- CDSP SP change
