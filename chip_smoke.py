@@ -61,6 +61,28 @@ Phases, each printing JSON lines:
                TP x SP replay holds each K1/K3 call to its plain version
                (planted faults rejected) and its logits to the plain
                path's; device ms per chunk and tick of the four engines;
+  3d. sp_families — sequence parallelism for every family on the same
+               4 positions of the one card, each at full width in bf16:
+               Mamba-2-1.3B's engine (chunks that divide into whole scan
+               chunks a position run sp_ssd, K5 a position; the others
+               one K5; launches exactly as predicted, every stream step
+               held by the tie rule of 3b, each K5 call of the longest
+               request's replay held to the plain scan with planted
+               faults, logits within Mamba's limit), Qwen1.5-MoE-A2.7B's
+               engine with expert parallelism (15 of the 60 experts a
+               position; K1/K3 launches and EP islands exactly as
+               predicted, routing beside the unsharded replay's, each
+               K1/K3 call of the replay held to its plain version,
+               logits within Qwen's limit of the mesh's plain path),
+               and Llama-3-8B's dense path
+               (a 6144-token prompt in zigzag order through the
+               causal-skip ring, K3; the hand-off to dense caches split
+               4 ways; 16 split-KV ticks, K4 a shard; launches exactly as
+               predicted beside the contiguous ring's; the prefill and
+               first tick replayed with each K3/K4 call held to its plain
+               version, logits held to the plain path's); device ms per
+               chunk and tick beside the unsharded runs', and per-call
+               K3/K4/K5 times at the mesh shapes beside their bounds;
   4. dense   — Llama-3-8B at full width through CDSP chunked prefill over
                a dense history (K3), the hand-off to dense decode caches,
                and 16 dense decode ticks (K4); the first tick is held to
@@ -77,15 +99,18 @@ Phases, each printing JSON lines:
   6. tokens  — fp32 at two layers (full widths): each served model's
                engine gives identical greedy tokens on the kernel path and
                the plain path, Llama's 4-position mesh engine (also
-               restriped live), its 2 x 2 TP x SP engine and its dense
-               path give the paged engine's tokens, and Whisper's
+               restriped live), its 2 x 2 TP x SP engine, its dense
+               path and its zigzag + split-KV dense path on the mesh give
+               the paged engine's tokens, Mamba-2's mesh engine (sp_ssd)
+               and Qwen1.5-MoE's mesh engine with expert parallelism
+               give their unsharded engines' tokens, and Whisper's
                path (two encoder and two decoder layers) gives the plain
                path's.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-6 (3b and 3c included) run.
+subset; with no arguments phases 1-6 (3b, 3c and 3d included) run.
 ``--only profile`` adds a torch.profiler breakdown of one full-width
 prefill chunk and one decode tick of each served model and of Whisper
 (kernel time by group and by aten op, on Qwen by MoE stage, and the
@@ -139,6 +164,14 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
          # and K1 per tick on each (data, model) position's head slice
          "serve_elastic": {"paged_flash_decode", "flash_attention"},
          "serve_tp": {"paged_flash_decode", "flash_attention"},
+         # sequence parallelism for every family: Mamba-2's sp_ssd (K5 a
+         # position; chunks that do not divide, one K5), Qwen1.5-MoE with
+         # expert parallelism (K3 ring steps, K1 a shard; EP islands are
+         # no kernel), the dense path's zigzag ring (K3) and split-KV
+         # ticks (K4 a shard)
+         "sp_mamba": {"ssd_scan"},
+         "sp_moe": {"paged_flash_decode", "flash_attention"},
+         "sp_dense": {"flash_attention", "flash_decode"},
          "dense": {"flash_attention", "flash_decode"},
          "whisper": {"flash_attention", "flash_decode"}}
 # the served attention models whose replay holds each K1-K3 call to its
@@ -255,6 +288,32 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def ssd_bound_ms(B, S, H, P, G, N, chunk, dtype: str, h0: bool):
+    """K5's bound: every input read once and every output written once
+    (the incoming state too, where there is one), and what the causal
+    chunks need: C.B^T once per group, the masked product with x, the
+    chunk states and the inter-chunk output per head."""
+    es = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * B * S * H * P + 2 * B * S * G * N) * es \
+        + B * S * H * 4 + H * 4 + (1 + h0) * B * H * P * N * 4
+    flops = 0
+    for c0 in range(0, S, chunk):
+        lc = min(chunk, S - c0)
+        tri = lc * (lc + 1) // 2
+        flops += B * (2 * tri * N * G + 2 * tri * P * H
+                      + 4 * lc * P * N * H)
+    return bound_ms(nbytes, flops, dtype)
+
+
+def ring_step_bound_ms(s: int, H: int, KVH: int, D: int, pairs: int):
+    """K3's bound for one bf16 call of ``s`` queries over ``s`` keys with
+    ``pairs`` visible (query, key) pairs: q, k, v, o, the LSE and both
+    position arrays once each; the two products over the visible
+    pairs."""
+    nbytes = (2 * s * H * D + 2 * s * KVH * D) * 2 + H * s * 4 + 2 * s * 4
+    return bound_ms(nbytes, 4 * H * D * pairs, "bfloat16")
+
+
 def _free() -> None:
     """Return a finished phase's memory to the card: the engine holds
     reference cycles, so its weights outlive ``del`` until a collection."""
@@ -292,6 +351,10 @@ SSD_TOL = {"bfloat16": (1e-3, 1e-2), "float32": (1e-4, 1e-4),
 SSD_FAULTS = {"h0_dropped": lambda x, h0: (x, None),
               "x_one_step_off": lambda x, h0: (x.roll(1, 1), h0),
               "h0_wrong_head": lambda x, h0: (x, h0.roll(1, 1))}
+# a call with no incoming state (a sequence-parallel position's scan):
+# the faults that need none, and x of the wrong head
+SSD_FAULTS_NO_H0 = {"x_one_step_off": SSD_FAULTS["x_one_step_off"],
+                    "x_wrong_head": lambda x, h0: (x.roll(1, 2), h0)}
 
 
 def ssd_ratios(got, want) -> dict:
@@ -309,7 +372,8 @@ def ssd_planted(x, dt, A, Bm, Cm, h0, chunk) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
     want = ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
     out = {}
-    for name, fault in SSD_FAULTS.items():
+    for name, fault in (SSD_FAULTS if h0 is not None
+                        else SSD_FAULTS_NO_H0).items():
         xf, hf = fault(x, h0)
         out[name] = max(ssd_ratios(ssd_scan_plain(
             xf, dt, A, Bm, Cm, h0=hf, chunk=chunk), want).values())
@@ -752,20 +816,8 @@ def phase_kernels(full_shapes: bool = True):
         times = planted = None
         if main:
             planted = ssd_planted(x, dt, A, Bm, Cm, hz, chunk)
-            es = torch.finfo(dtype).bits // 8
-            # every input read once, every output written once
-            nbytes = (2 * B * S * H * P + 2 * B * S * G * N) * es \
-                + B * S * H * 4 + H * 4 + 2 * B * H * P * N * 4
-            # what the causal chunks need: C.B^T once per group, the
-            # masked product with x, the chunk states and the inter-chunk
-            # output per head
-            flops = 0
-            for c0 in range(0, S, chunk):
-                lc = min(chunk, S - c0)
-                tri = lc * (lc + 1) // 2
-                flops += B * (2 * tri * N * G + 2 * tri * P * H
-                              + 4 * lc * P * N * H)
-            bms, by = bound_ms(nbytes, flops, str(dtype).split(".")[-1])
+            bms, by = ssd_bound_ms(B, S, H, P, G, N, chunk,
+                                   str(dtype).split(".")[-1], h0)
             times = _times(
                 lambda: ssd_scan(x, dt, A, Bm, Cm, h0=hz, chunk=chunk),
                 lambda: ssd_scan_plain(x, dt, A, Bm, Cm, h0=hz,
@@ -1069,21 +1121,25 @@ def _replay(cfg, params, ctx, prompt, tokens):
     return out
 
 
-def ssd_call_gate(run, n_layers: int):
+def ssd_call_gate(run, n_layers: int, per: int = 1):
     """Run ``run()``, two chunks of an attention-free Mamba model of
     ``n_layers`` layers on the kernel path, with each K5 call also held to
     the plain scan on the same inputs (that layer's activations) under
-    K5's check; the kernel's outputs go on unchanged.  The second chunk's
-    calls of the first and the last layer keep their inputs, and the
-    check must reject each of ``SSD_FAULTS`` planted there.  Returns
-    (``run()``'s result, a report whose ``ok`` says whether all calls
-    passed and all planted faults were rejected)."""
+    K5's check; the kernel's outputs go on unchanged.  ``per`` is the K5
+    calls a layer makes in a chunk (a sequence-parallel chunk: one a
+    position).  The second chunk's first call of the first layer and
+    last call of the last layer keep their inputs, and the check must
+    reject each of ``SSD_FAULTS`` planted there (``SSD_FAULTS_NO_H0``
+    for a call without an incoming state).  Returns (``run()``'s result,
+    a report whose ``ok`` says whether all calls passed and all planted
+    faults were rejected)."""
     import statistics
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
     kernel = ops.ssd_scan
-    keep = {n_layers: "layer0_chunk2",
-            2 * n_layers - 1: f"layer{n_layers - 1}_chunk2"}
+    c = per * n_layers
+    keep = {c: "layer0_chunk2",
+            2 * c - 1: f"layer{n_layers - 1}_chunk2"}
     ratios, kept = [], {}
 
     def recorder(x, dt, A, Bm, Cm, *, h0=None, chunk=128):
@@ -1103,12 +1159,13 @@ def ssd_call_gate(run, n_layers: int):
     report = {"calls": len(ratios)}
     for k in ("y", "h") if ratios else ():
         i = max(range(len(ratios)), key=lambda i: ratios[i][k])
-        report[f"worst_{k}"] = {"ratio": ratios[i][k], "layer": i % n_layers,
-                                "chunk": i // n_layers + 1}
+        report[f"worst_{k}"] = {"ratio": ratios[i][k],
+                                "layer": i // per % n_layers,
+                                "position": i % per, "chunk": i // c + 1}
         report[f"median_{k}"] = statistics.median(r[k] for r in ratios)
     report["planted"] = {name: ssd_planted(*ins)
                          for name, ins in kept.items()}
-    report["ok"] = (len(ratios) == 2 * n_layers
+    report["ok"] = (len(ratios) == 2 * c
                     and all(r["y"] <= 1.0 and r["h"] <= 1.0 for r in ratios)
                     and len(kept) == len(keep)
                     and all(v > 1.0 for p in report["planted"].values()
@@ -1227,6 +1284,7 @@ def moe_routes():
     "top_idx": (n, g, k), "keep": (n, g, k)} (tensors left on the
     device), in call order: layer by layer within a forward, forward by
     forward.  The layer's results are not touched."""
+    import torch
     from repro_torch.models import moe
     route, group = moe._route, moe._group_tokens
     calls = []
@@ -1238,7 +1296,14 @@ def moe_routes():
 
     def route_rec(xt, router_w, m, E, C):
         r = route(xt, router_w, m, E, C)
-        calls[-1].update(C=C, top_idx=r["top_idx"], keep=r["keep"])
+        call = calls[-1]
+        if "top_idx" in call:
+            # an expert-parallel island routes its token parts one by one
+            r_all = {k: torch.cat([call[k], r[k].to(call[k].device)])
+                     for k in ("top_idx", "keep")}
+        else:
+            r_all = r
+        call.update(C=C, top_idx=r_all["top_idx"], keep=r_all["keep"])
         return r
 
     moe._route, moe._group_tokens = route_rec, group_rec
@@ -1538,8 +1603,7 @@ def _k3_ring_step_times(cfg, L: int) -> dict:
         torch.cuda.synchronize()
     for name, (a, b) in cases.items():
         pairs = int((b[None, :] <= a[:, None]).sum())
-        nbytes = (2 * s * H * D + 2 * s * KVH * D) * 2 + H * s * 4 + 2 * s * 4
-        bms, by = bound_ms(nbytes, 4 * H * D * pairs, "bfloat16")
+        bms, by = ring_step_bound_ms(s, H, KVH, D, pairs)
         plain = (lambda a=a, b=b: flash_attention_plain(q, k, v, a, b))
         out[name].update(visible_pairs=pairs, ms=out[name]["ms_passes"][-1],
                          plain_ms=event_ms(plain, cold=False, n=3),
@@ -2015,11 +2079,16 @@ def phase_serve_elastic() -> dict:
 
 # ---------------------------------------------------------------- phase 4
 def _dense_run(cfg, params, ctx, prompts, chunks, ticks, force=None,
-               frames=None):
+               frames=None, positions=None, decode_ctx=None, max_seq=None):
     """CDSP chunked prefill over a dense history (an encoder-decoder's
     with its ``frames``), the hand-off to dense decode caches, then
     ``ticks`` dense decode ticks, greedy (or on the tokens ``force``).
-    ``prompts``: one prompt, or a batch of prompts of one length.  Returns
+    ``prompts``: one prompt, or a batch of prompts of one length, stored
+    in the order ``positions`` gives (default natural; a zigzag layout's
+    positions on a mesh).  ``decode_ctx`` (default ``ctx``) runs the
+    hand-off and the ticks: on a split-KV context the caches are laid out
+    in sequence shards over its split axis.  The caches hold ``max_seq``
+    slots (default the prompt and the ticks).  Returns
     a dict: ``rows`` (logits (B, V) fp32: prefill then each tick),
     ``tokens`` (a list of B tokens per step), ``prefill_ms`` and
     ``tick_ms`` (CUDA events around the prefill with its hand-off, and
@@ -2031,15 +2100,21 @@ def _dense_run(cfg, params, ctx, prompts, chunks, ticks, force=None,
                                        history_to_decode_caches)
     from repro_torch.models.transformer import forward
     dev = ctx.device
+    dctx = ctx if decode_ctx is None else decode_ctx
     toks = torch.as_tensor(np.atleast_2d(prompts), device=dev)
     B, L = toks.shape
-    pos = torch.arange(L, dtype=torch.int32, device=dev)[None].expand(B, L)
+    pos = (torch.arange(L, dtype=torch.int32, device=dev) if positions is None
+           else torch.as_tensor(positions, dtype=torch.int32,
+                                device=dev))[None].expand(B, L)
+    toks = torch.gather(toks, 1, pos.long())
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     before = _read_counts()
     ev[0].record()
     logits, hist = chunked_prefill(params, cfg, ctx, toks, pos, chunks,
                                    encoder_frames=frames)
-    caches, clen = history_to_decode_caches(cfg, hist, max_seq=L + ticks)
+    caches, clen = history_to_decode_caches(
+        cfg, hist, max_seq=L + ticks if max_seq is None else max_seq,
+        ctx=dctx if dctx.mesh is not None else None)
     ev[1].record()
     prefill_launches = {k: v - before[k] for k, v in _read_counts().items()}
     del hist
@@ -2049,7 +2124,7 @@ def _dense_run(cfg, params, ctx, prompts, chunks, ticks, force=None,
     for i in range(ticks):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
-        lg, _, caches = forward(params, cfg, ctx,
+        lg, _, caches = forward(params, cfg, dctx,
                                 torch.tensor(out[-1], device=dev)[:, None],
                                 clen[:, None], "decode", caches=caches,
                                 cache_len=clen)
@@ -2108,6 +2183,497 @@ def phase_dense() -> dict:
     del params
     _free()
     return counts
+
+
+# ------------------------------------------------- phase 3d: sp_families
+# the trace of the serve phases, and the dense path's prompt and ticks
+SP_LENS = (512, 2048, 4096, 6144)
+SP_DENSE_PROMPT, SP_DENSE_TICKS = 6144, 16
+
+
+def sp_k5_launches(cfg, lens) -> int:
+    """K5 launches of the trace (each prompt two chunks) on the ``SP``-
+    position mesh engine: a chunk that divides into whole scan chunks a
+    position runs ``sp_ssd``, one scan a position and layer; any other
+    chunk one scan a layer (models/ssm.py)."""
+    chunk = cfg.ssm.chunk_size
+    calls = 0
+    for L in lens:
+        for c in (L // 2, L - L // 2):
+            calls += SP if c % SP == 0 and (c // SP) % min(chunk, c) == 0 \
+                else 1
+    return calls * cfg.n_layers
+
+
+def sp_moe_launches(cfg, lens, ticks: int) -> dict:
+    """K1/K3 launches and EP islands of the trace on the mesh engine with
+    ``moe_ep``: a first chunk rings SP x SP K3 calls a layer, a history
+    chunk twice that (own KV, then the striped slab), a tick one K1 call a
+    shard and layer; a chunk's MoE layers take EP where its 512-token
+    groups divide over the SP axis, every tick's (a tick has no token
+    axis)."""
+    from repro_torch.models.moe import GROUP_SIZE
+    ep_chunks = sum(1 for L in lens for c in (L // 2, L - L // 2)
+                    if -(-c // min(GROUP_SIZE, c)) % SP == 0)
+    return {"flash_attention": 3 * SP * SP * cfg.n_layers * len(lens),
+            "paged_flash_decode": SP * cfg.n_layers * ticks,
+            "paged_flash_prefill": 0,
+            "ep_prefill": ep_chunks * cfg.n_layers,
+            "ep_tick": ticks * cfg.n_layers}
+
+
+def sp_dense_launches(n_layers: int, ticks: int) -> dict:
+    """The dense path on the mesh: the zigzag ring makes one K3 call a
+    position at step 0 and two at each later step (SP + 2 SP (SP - 1) a
+    layer), the contiguous ring SP x SP; each tick one K4 call a shard and
+    layer."""
+    return {"zigzag_K3": n_layers * (SP + 2 * SP * (SP - 1)),
+            "contiguous_K3": n_layers * SP * SP,
+            "K4": n_layers * ticks * SP}
+
+
+@contextlib.contextmanager
+def ep_islands():
+    """Count the expert-parallel islands run inside the block, a chunk's
+    (its groups split over the SP axis) apart from a tick's (no token
+    axis under serve_paged)."""
+    from repro_torch.models import moe
+    island = moe._moe_ep
+    seen = {"prefill": 0, "tick": 0}
+
+    def call(*args):
+        seen["tick" if args[-1] is None else "prefill"] += 1
+        return island(*args)
+
+    moe._moe_ep = call
+    try:
+        yield seen
+    finally:
+        moe._moe_ep = island
+
+
+def _serve_runs(phase, cfg, params, prompts, ctxs: dict, out_len: int):
+    """The trace on one engine per context of ``ctxs``; per engine its
+    launches, outputs, plans, the EP islands it ran, and the device us
+    per chunk and tick."""
+    import torch
+    runs = {}
+    for name, c in ctxs.items():
+        _free()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with ep_islands() as ep:
+            eng = _serve(cfg, params, prompts, c, out_len, max_seq=6208,
+                         prefill_pool_blocks=256, host_pool_blocks=128,
+                         profile_ops=True)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {"launches": _read_counts(), "ep_islands": dict(ep),
+                      "outputs": dict(eng.outputs),
+                      "plans": {rid: r.chunk_plan
+                                for rid, r in eng.reqs.items()},
+                      "chunk_device_us": _hist(
+                          eng, "op_device_us/prefill_chunk"),
+                      "tick_device_us": _hist(eng,
+                                              "op_device_us/decode_tick"),
+                      # the ticks the engine ran (its profiled tick ops)
+                      "ticks": (_hist(eng, "op_device_us/decode_tick")
+                                or _hist(eng, "op_wall_us/decode_tick")
+                                )["count"]}
+        emit(phase=phase, model=cfg.name, engine=name,
+             wall_s=round(wall, 2), **{k: v for k, v in runs[name].items()
+                                       if k not in ("outputs", "plans")},
+             outputs={str(k): v for k, v in eng.outputs.items()})
+        del eng
+    emit(phase=phase, model=cfg.name, device_ms={f"{op}_mean": {
+        k: r[f"{op}_device_us"]["mean"] / 1e3
+        for k, r in runs.items() if r[f"{op}_device_us"]}
+        for op in ("chunk", "tick")})
+    return runs
+
+
+def _sp_mamba() -> dict:
+    """Mamba-2-1.3B at full width, bf16, on the unsharded engine and on
+    the ``SP``-position mesh engine (both pools striped; chunks that
+    divide into whole 256-token scan chunks a position run ``sp_ssd``,
+    the 256-token chunks of the 512-token prompt one scan).  K5 launches
+    exactly ``sp_k5_launches``; every step of the unsharded engine's
+    streams held by the tie rule on three paths; the longest request's
+    mesh replay holds each of its K5 calls (one a position) to the plain
+    scan, planted faults rejected, and its logits to the plain path's
+    within Mamba's limit."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.sharding import make_context
+    cfg = get_config("mamba2-1.3b")
+    ctx, sp_ctx = make_context("cuda"), _sp_context()
+    params = init_params(cfg, seed=0, device=ctx.device)
+    emit(phase="sp_families", model=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, params=count_params(params), positions=SP)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+               for L in SP_LENS]
+    out_len = 16
+    runs = _serve_runs("sp_families", cfg, params, prompts,
+                       {"unsharded": ctx, "sharded": sp_ctx}, out_len)
+    sh, flat = runs["sharded"], runs["unsharded"]
+    counts = sh["launches"]
+    want_k5 = sp_k5_launches(cfg, SP_LENS)
+    emit(phase="sp_families", model=cfg.name,
+         k5_launches={"sharded": counts["ssd_scan"], "predicted": want_k5,
+                      "unsharded": flat["launches"]["ssd_scan"]})
+    _check_launches(counts, "sp_mamba")
+    check(counts["ssd_scan"] == want_k5,
+          f"sp_families: Mamba-2 launched K5 {counts['ssd_scan']} times, "
+          f"predicted {want_k5}")
+    ties = _stream_ties(cfg, params, {"unsharded": ctx, "sharded": sp_ctx,
+                                      "plain": ctx.with_(impl="ref")},
+                        prompts, flat["outputs"], {"sharded": sh["outputs"]})
+    emit(phase="sp_families", model=cfg.name, stream_ties=ties,
+         tie_tol=TIE_TOL, steps_checked=sum(r["steps"] for r in ties.values()))
+    check(all(o["tie"] for r in ties.values() for o in r["others"]),
+          "sp_families: a Mamba-2 path's greedy token differs from the "
+          f"unsharded engine's at a step that is no tie: {ties}")
+    rid = len(SP_LENS) - 1
+    first = flat["outputs"][rid][0]
+    _free()
+    got, gate = ssd_call_gate(
+        lambda: _replay(cfg, params, sp_ctx, prompts[rid], [first]),
+        cfg.n_layers, per=SP)
+    emit(phase="sp_families", model=cfg.name, ssd_calls=gate,
+         tol={k: SSD_TOL[k] for k in ("bfloat16", "h_final")})
+    check(gate["ok"], "sp_families: a K5 call of the Mamba-2 mesh replay "
+          f"disagrees with the plain scan, or a planted fault passed: {gate}")
+    check(int(torch.argmax(got[1])) == first,
+          "sp_families: the Mamba-2 mesh replay disagrees with the "
+          "engine's first token")
+    want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid], [first])
+    _logits_vs_plain("sp_families", ("mamba_chunk1", "mamba_chunk2",
+                                     "mamba_tick"), got, want,
+                     LOGIT_TOL["mamba2-1.3b"])
+    del got, want
+    _free()
+    emit(phase="sp_families", model=cfg.name,
+         k5_position_calls=_k5_position_times(cfg))
+    del params
+    _free()
+    return counts
+
+
+def _k5_position_times(cfg) -> dict:
+    """One K5 call's time at the mesh's per-position shapes (the 1024-,
+    2048- and 3072-token chunks over ``SP`` positions, no incoming state),
+    by CUDA events with the card held busy, beside its bound and the plain
+    scan's time."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    s = cfg.ssm
+    H = s.expand * cfg.d_model // s.head_dim
+    P, G, N, chunk = s.head_dim, s.ngroups, s.d_state, s.chunk_size
+    out = {}
+    for S in (1024 // SP, 2048 // SP, 3072 // SP):
+        d_in = H * P
+        xbc = torch.randn(1, S, d_in + 2 * G * N, generator=gen).to(
+            dev, torch.bfloat16)
+        x = xbc[..., :d_in].reshape(1, S, H, P)
+        Bm = xbc[..., d_in:d_in + G * N].reshape(1, S, G, N)
+        Cm = xbc[..., d_in + G * N:].reshape(1, S, G, N)
+        dt = torch.exp(torch.empty(1, S, H).uniform_(
+            -6.9, -2.3, generator=gen)).to(dev)
+        A = -torch.empty(H).uniform_(1.0, 16.0, generator=gen).to(dev)
+        got = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        want = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+        bms, by = ssd_bound_ms(1, S, H, P, G, N, chunk, "bfloat16", False)
+        out[f"tokens_{S}"] = {
+            "ratios": ssd_ratios(got, want),
+            "ms": event_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=chunk),
+                           cold=False),
+            "plain_ms": event_ms(lambda: ssd_scan_plain(
+                x, dt, A, Bm, Cm, chunk=chunk), cold=False, n=3),
+            "bound_ms": bms, "bound_by": by}
+        check(max(out[f"tokens_{S}"]["ratios"].values()) <= 1.0,
+              f"sp_families: K5 at {S} tokens disagrees with the plain scan")
+    return out
+
+
+def _sp_moe() -> dict:
+    """Qwen1.5-MoE-A2.7B at full width, bf16, on the unsharded engine and
+    on the ``SP``-position mesh engine with expert parallelism (each
+    position owns 15 of the 60 experts): K1/K3 launches and EP islands
+    exactly ``sp_moe_launches``; the routing of the longest request's
+    mesh replay beside the unsharded replay's and the mesh plain path's;
+    the replay holds each K1/K3 call to its plain version (planted faults
+    rejected) and its logits within Qwen's limit to the plain path of the
+    same program (the mesh with EP, plain kernels); the logits against
+    the unsharded plain path are printed beside them."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.sharding import make_context
+    cfg = get_config("qwen2-moe-a2.7b")
+    ctx, ep_ctx = make_context("cuda"), _sp_context().with_(moe_ep=True)
+    params = init_params(cfg, seed=0, device=ctx.device)
+    emit(phase="sp_families", model=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, params=count_params(params), positions=SP,
+         experts_a_position=cfg.moe.n_experts // SP)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
+               for L in SP_LENS]
+    out_len = 16
+    runs = _serve_runs("sp_families", cfg, params, prompts,
+                       {"unsharded": ctx, "sharded_ep": ep_ctx}, out_len)
+    sh, flat = runs["sharded_ep"], runs["unsharded"]
+    counts = sh["launches"]
+    ticks = sh["ticks"]
+    want = sp_moe_launches(cfg, SP_LENS, ticks)
+    got_n = {**{k: counts[k] for k in ("flash_attention",
+                                       "paged_flash_decode",
+                                       "paged_flash_prefill")},
+             "ep_prefill": sh["ep_islands"]["prefill"],
+             "ep_tick": sh["ep_islands"]["tick"]}
+    emit(phase="sp_families", model=cfg.name, ticks=ticks,
+         launches_vs_predicted={"got": got_n, "predicted": want},
+         tokens_identical={str(r): sh["outputs"][r] == t
+                           for r, t in flat["outputs"].items()})
+    _check_launches(counts, "sp_moe")
+    check(got_n == want, f"sp_families: Qwen1.5-MoE on the mesh launched "
+          f"{got_n}, predicted {want}")
+    check(not any(flat["ep_islands"].values()),
+          "sp_families: the unsharded engine ran an EP island")
+    rid = len(SP_LENS) - 1
+    first = flat["outputs"][rid][0]
+    _free()
+    with moe_routes() as got_routes:
+        got, gate = attn_call_gate(
+            lambda: _replay(cfg, params, ep_ctx, prompts[rid], [first]),
+            *sp_gate_plan(cfg.n_layers))
+    emit(phase="sp_families", model=cfg.name, attention_calls=gate,
+         tol=KERNEL_TOL["bfloat16"])
+    check(gate["ok"], "sp_families: a K1/K3 call of the Qwen mesh replay "
+          f"disagrees with its plain version, or a planted fault passed: "
+          f"{gate}")
+    with moe_routes() as flat_routes:
+        _replay(cfg, params, ctx, prompts[rid], [first])
+    with moe_routes() as want_routes:
+        want_rows = _replay(cfg, params, ep_ctx.with_(impl="ref"),
+                            prompts[rid], [first])
+    flat_plain = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid],
+                         [first])
+    rows = ("chunk1", "chunk2_history", "decode_tick")
+    emit(phase="sp_families", model=cfg.name,
+         routing_vs_unsharded=routing_diff(got_routes, flat_routes,
+                                           cfg.n_layers, rows),
+         routing_vs_mesh_plain=routing_diff(got_routes, want_routes,
+                                            cfg.n_layers, rows),
+         logits_vs_unsharded_plain={
+             r: {"max_abs_err": float((a - b).abs().max()),
+                 "cos": float(torch.nn.functional.cosine_similarity(
+                     a, b, dim=0))}
+             for r, a, b in zip(rows, got, flat_plain)})
+    del got_routes, flat_routes, want_routes, flat_plain
+    # held to the plain path of the same program: the mesh with EP, plain
+    # kernels.  Against the unsharded plain path (printed above) the
+    # tick's routing flips near ties in 14 of 24 layers on a right path:
+    # the mesh without EP reads the same (tools/moe_logits_floor.py,
+    # PERF.md section 6)
+    _logits_vs_plain("sp_families", tuple(f"moe_{r}" for r in rows), got,
+                     want_rows, LOGIT_TOL["qwen2-moe-a2.7b"])
+    del got, want_rows, params
+    _free()
+    return counts
+
+
+def dense_gate_plan(n_layers: int):
+    """(calls, keep) of ``attn_call_gate`` for the dense mesh path's
+    zigzag prefill and first tick: K3 in the order (layer, step,
+    position), one call a position at step 0 and two (A, then B) at each
+    later step; K4 one a shard and layer.  Kept: the first layer's first
+    step-0 call and its first later-step pair, the last layer's last
+    pair, and the tick's first and last K4 calls."""
+    per = sp_dense_launches(n_layers, 1)
+    c, k4 = per["zigzag_K3"], per["K4"]
+    return ({"flash_attention": c, "flash_decode": k4},
+            {"flash_attention": (0, SP, SP + 1, c - 2, c - 1),
+             "flash_decode": (0, k4 - 1)})
+
+
+def _sp_dense() -> dict:
+    """Llama-3-8B at full width, bf16: a 6144-token prompt prefilled whole
+    on one position, on the ``SP``-position mesh in contiguous order, and
+    in zigzag order with the causal skip; the zigzag run hands its KV to
+    dense caches split ``SP`` ways over a decode context's split axis and
+    runs 16 split-KV ticks (K4 a shard).  Launches exactly
+    ``sp_dense_launches``; the zigzag prefill and first tick are replayed
+    with each K3/K4 call held to its plain version (planted faults
+    rejected) and their logits held to the plain path's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.zigzag import zigzag_permutation
+    from repro_torch.launch.mesh import make_context as mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import make_context
+    cfg = get_config("llama3-8b")
+    ctx = make_context("cuda")
+    pre = mesh_context(make_mesh((SP,), ("data",), device="cuda"), "prefill")
+    zz = pre.with_(zigzag_skip=True)
+    dec = mesh_context(make_mesh((1, SP), ("data", "model"), device="cuda"),
+                       "decode")
+    params = init_params(cfg, seed=0, device=ctx.device)
+    L, ticks = SP_DENSE_PROMPT, SP_DENSE_TICKS
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, L).astype(np.int32)
+    perm = zigzag_permutation(L, SP)
+    want_n = sp_dense_launches(cfg.n_layers, ticks)
+    runs = {}
+    for name, pc, dc, pos in (("unsharded", ctx, ctx, None),
+                              ("mesh_contiguous", pre, ctx, None),
+                              ("mesh_zigzag", zz, dec, perm)):
+        _free()
+        _reset_counts()
+        # one untimed run first: the first calls at new shapes
+        _dense_run(cfg, params, pc, prompt, [L], 1, positions=pos,
+                   decode_ctx=dc, max_seq=L + ticks)
+        _reset_counts()
+        run = _dense_run(cfg, params, pc, prompt, [L], ticks, positions=pos,
+                         decode_ctx=dc)
+        counts = _read_counts()
+        tick_ms = run["tick_ms"]
+        runs[name] = {"launches": counts,
+                      "prefill_launches": run["prefill_launches"],
+                      "tokens": [t[0] for t in run["tokens"]],
+                      "prefill_ms": run["prefill_ms"],
+                      "tick_ms_mean": sum(tick_ms) / len(tick_ms)}
+        emit(phase="sp_families", model=cfg.name, path="dense",
+             engine=name, **runs[name],
+             clock="cuda events around the prefill (with its hand-off) and "
+                   "each tick")
+        del run
+    z = runs["mesh_zigzag"]
+    got_n = {"zigzag_K3": z["prefill_launches"]["flash_attention"],
+             "contiguous_K3":
+                 runs["mesh_contiguous"]["prefill_launches"][
+                     "flash_attention"],
+             "K4": z["launches"]["flash_decode"]}
+    emit(phase="sp_families", model=cfg.name, path="dense",
+         launches_vs_predicted={"got": got_n, "predicted": want_n},
+         tokens_identical={n: r["tokens"] == runs["unsharded"]["tokens"]
+                           for n, r in runs.items()})
+    _check_launches(z["launches"], "sp_dense")
+    check(got_n == want_n, f"sp_families: the dense mesh path launched "
+          f"{got_n}, predicted {want_n}")
+    _free()
+    force = [[t] for t in z["tokens"][:2]]
+    got, gate = attn_call_gate(
+        lambda: _dense_run(cfg, params, zz, prompt, [L], 1, force=force,
+                           positions=perm, decode_ctx=dec,
+                           max_seq=L + ticks),
+        *dense_gate_plan(cfg.n_layers))
+    emit(phase="sp_families", model=cfg.name, path="dense",
+         attention_calls=gate, tol=KERNEL_TOL["bfloat16"])
+    check(gate["ok"], "sp_families: a K3/K4 call of the dense mesh replay "
+          f"disagrees with its plain version, or a planted fault passed: "
+          f"{gate}")
+    want = _dense_run(cfg, params, ctx.with_(impl="ref"), prompt, [L], 1,
+                      force=force)
+    _logits_vs_plain("sp_families", ("dense_zigzag_prefill",
+                                     "dense_split_tick1"),
+                     [r[0] for r in got["rows"]],
+                     [r[0] for r in want["rows"]], LOGIT_TOL["llama3-8b"])
+    del got, want
+    _free()
+    emit(phase="sp_families", model=cfg.name, path="dense",
+         shard_calls=_dense_shard_times(cfg, L, ticks))
+    del params
+    _free()
+    return z["launches"]
+
+
+def _dense_shard_times(cfg, L: int, ticks: int) -> dict:
+    """One call's time at the dense mesh path's per-position shapes, by
+    CUDA events with the card held busy, beside its bound and its plain
+    version's time: K3 at the zigzag ring's step 0 (a position's L / SP
+    queries over its own keys, slices 0 and 2 SP - 1, causal) and at a
+    later step (L / 2 SP queries over as many keys, all visible), and K4
+    over the first and the last of the SP shards of an (L + ticks)-slot
+    cache at the first tick (length L + 1)."""
+    import torch
+    from repro_torch.core.zigzag import zigzag_permutation
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    H, KVH, D = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim_
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+
+    out = {}
+    s = L // SP
+    perm = torch.as_tensor(zigzag_permutation(L, SP)[:s], dtype=torch.int32,
+                           device=dev)
+    half = s // 2
+    cases = {"k3_step0_diagonal": (s, perm, perm),
+             "k3_later_half": (half, perm[half:], perm[:half])}
+    for name, (n, qp, kp) in cases.items():
+        q, k, v = randn(1, n, H, D), randn(1, n, KVH, D), randn(1, n, KVH, D)
+        pairs = int((kp[None, :] <= qp[:, None]).sum())
+        bms, by = ring_step_bound_ms(n, H, KVH, D, pairs)
+        o, lse = flash_attention(q, k, v, qp, kp)
+        po, pl = flash_attention_plain(q, k, v, qp, kp)
+        tol = KERNEL_TOL["bfloat16"]
+        out[name] = {
+            "queries": n, "keys": n, "visible_pairs": pairs,
+            "o_ratio": close_ratio(o, po, tol["atol"], tol["rtol"]),
+            "ms": event_ms(lambda: flash_attention(q, k, v, qp, kp),
+                           cold=False),
+            "plain_ms": event_ms(lambda: flash_attention_plain(
+                q, k, v, qp, kp), cold=False, n=3),
+            "bound_ms": bms, "bound_by": by}
+    s_loc = (L + ticks) // SP
+    ln = torch.tensor([L + 1], dtype=torch.int32, device=dev)
+    for i in (0, SP - 1):
+        q, k, v = randn(1, H, D), randn(1, s_loc, KVH, D), \
+            randn(1, s_loc, KVH, D)
+        off = i * s_loc
+        keys = max(0, min(s_loc, L + 1 - off))
+        nbytes = 2 * H * D * 2 + 2 * keys * KVH * D * 2 + H * 4 + 4
+        bms, by = bound_ms(nbytes, 4 * H * D * keys, "bfloat16")
+        o, _ = flash_decode(q, k, v, ln, kv_offset=off)
+        po, _ = flash_decode_plain(q, k, v, ln, kv_offset=off)
+        tol = KERNEL_TOL["bfloat16"]
+        out[f"k4_shard{i}"] = {
+            "keys": s_loc, "valid_keys": keys, "kv_offset": off,
+            "o_ratio": close_ratio(o, po, tol["atol"], tol["rtol"]),
+            "ms": event_ms(lambda: flash_decode(q, k, v, ln, kv_offset=off),
+                           cold=True),
+            "warm_ms": event_ms(lambda: flash_decode(q, k, v, ln,
+                                                     kv_offset=off),
+                                cold=False),
+            "plain_ms": event_ms(lambda: flash_decode_plain(
+                q, k, v, ln, kv_offset=off), cold=False, n=3),
+            "bound_ms": bms, "bound_by": by}
+    check(all(r["o_ratio"] <= 1.0 for r in out.values()),
+          f"sp_families: a K3/K4 call at the mesh shapes disagrees: {out}")
+    return out
+
+
+def phase_sp_families() -> dict:
+    """Sequence parallelism for every family on the ``SP`` positions of
+    the one card, each path at full width in bf16 and freed before the
+    next: Mamba-2 (``sp_ssd``), Qwen1.5-MoE with expert parallelism, and
+    Llama-3-8B's dense path (zigzag causal-skip ring, split-KV dense
+    decode).  Returns the launch counts of the three mesh runs."""
+    return {"sp_mamba": _sp_mamba(), "sp_moe": _sp_moe(),
+            "sp_dense": _sp_dense()}
 
 
 # ---------------------------------------------------------- phase whisper
@@ -2356,6 +2922,58 @@ def _tokens_sharded(cfg, params, prompts, outs, out_len: int) -> None:
         _free()
 
 
+def _tokens_mesh(cfg, params, ctx, prompts, outs, out_len: int, path: str,
+                 mesh_ctx) -> None:
+    """The fp32 trace on the mesh engine of ``mesh_ctx``: its tokens must
+    be the unsharded kernel and plain engines' ``outs``."""
+    _reset_counts()
+    with ep_islands() as ep:
+        eng = _serve(cfg, params, prompts, mesh_ctx, out_len, max_seq=4096,
+                     prefill_pool_blocks=160, host_pool_blocks=64)
+    counts = _read_counts()
+    _check_launches(counts, path)
+    same = dict(eng.outputs) == outs
+    emit(phase="tokens", model=cfg.name, impl="cuda", engine=path,
+         mesh=repr(mesh_ctx.mesh), launches=counts, ep_islands=dict(ep),
+         identical=same, outputs={str(k): v for k, v in eng.outputs.items()})
+    check(same, f"{cfg.name}: fp32 greedy tokens of the {path} mesh engine "
+          "differ from the unsharded engines'")
+    check(not mesh_ctx.moe_ep or ep["prefill"] and ep["tick"],
+          f"{cfg.name}: the EP mesh engine ran EP islands {ep}")
+    del eng, params
+    _free()
+
+
+def _tokens_dense_mesh(cfg, params, ctx, prompt, want) -> None:
+    """fp32 Llama: ``prompt`` prefilled whole in zigzag order through the
+    causal-skip ring on ``SP`` positions, its KV handed to dense caches
+    split ``SP`` ways, then split-KV ticks (K4 a shard): the greedy tokens
+    must be the unsharded dense path's and ``want``, the paged
+    engine's."""
+    from repro_torch.core.zigzag import zigzag_permutation
+    from repro_torch.launch.mesh import make_context as mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    L, ticks = len(prompt), len(want) - 1
+    zz = mesh_context(make_mesh((SP,), ("data",), device="cuda"),
+                      "prefill").with_(zigzag_skip=True)
+    dec = mesh_context(make_mesh((1, SP), ("data", "model"), device="cuda"),
+                       "decode")
+    _reset_counts()
+    mesh = [t[0] for t in _dense_run(
+        cfg, params, zz, prompt, [L], ticks,
+        positions=zigzag_permutation(L, SP), decode_ctx=dec,
+        max_seq=-(-(L + ticks) // SP) * SP)["tokens"]]
+    counts = _read_counts()
+    _check_launches(counts, "sp_dense")
+    flat = [t[0] for t in _dense_run(cfg, params, ctx, prompt, [L],
+                                     ticks)["tokens"]]
+    emit(phase="tokens", model=cfg.name, path="dense_zigzag_split_kv",
+         launches=counts, mesh=mesh, dense=flat, paged=want,
+         identical=mesh == flat == want)
+    check(mesh == flat == want, "fp32 zigzag + split-KV dense tokens differ "
+          "from the dense path's or the paged engine's")
+
+
 def phase_tokens():
     cfg, params, ctx, prompts, outs = _tokens_engine(
         "llama3-8b", "serve_llama", 1, (300, 1000, 2500, 4000), 8)
@@ -2374,12 +2992,21 @@ def phase_tokens():
          dense=dense, paged=outs[rid], identical=dense == outs[rid])
     check(dense == outs[rid], "fp32 dense-path tokens differ from the paged "
           "engine's")
+    # the zigzag causal-skip ring and the split-KV dense ticks on the mesh
+    # give the same tokens (the longest prompt: zigzag needs 2 SP slices)
+    _tokens_dense_mesh(cfg, params, ctx, prompts[3], outs[3])
     del params
     _free()
-    _tokens_engine("mamba2-1.3b", "serve_mamba", 2, (300, 1000, 2500, 4000),
-                   8)
-    _tokens_engine("qwen2-moe-a2.7b", "serve_moe", 3,
-                   (300, 1000, 2500, 4000), 8)
+    # the mesh engines of the other families: Mamba-2 (the 1024-token
+    # chunks run sp_ssd, the others one scan) and Qwen1.5-MoE with expert
+    # parallelism (the 2000-token chunks' and every tick's MoE layers take
+    # EP)
+    _tokens_mesh(*_tokens_engine("mamba2-1.3b", "serve_mamba", 2,
+                                 (300, 1000, 2048, 4000), 8), 8,
+                 "sp_mamba", _sp_context())
+    _tokens_mesh(*_tokens_engine("qwen2-moe-a2.7b", "serve_moe", 3,
+                                 (300, 1000, 2500, 4000), 8), 8,
+                 "sp_moe", _sp_context().with_(moe_ep=True))
     _tokens_engine("chatglm3-6b", "serve_chatglm", 4,
                    (300, 1000, 2500, 4000), 8)
     _tokens_engine("nemotron-4-15b", "serve_nemotron", 5,
@@ -2651,11 +3278,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
                     choices=["device", "kernels", "serve", "serve_sp",
-                             "serve_elastic", "dense", "whisper", "tokens",
-                             "profile"])
+                             "serve_elastic", "sp_families", "dense",
+                             "whisper", "tokens", "profile"])
     args = ap.parse_args(argv)
     phases = args.only or ["device", "kernels", "serve", "serve_sp",
-                           "serve_elastic", "dense", "whisper", "tokens"]
+                           "serve_elastic", "sp_families", "dense",
+                           "whisper", "tokens"]
 
     import torch
     if not torch.cuda.is_available():
@@ -2673,6 +3301,8 @@ def main(argv=None) -> int:
         by_path["serve_sp"] = phase_serve_sp()
     if "serve_elastic" in phases:
         by_path.update(phase_serve_elastic())
+    if "sp_families" in phases:
+        by_path.update(phase_sp_families())
     if "dense" in phases:
         by_path["dense"] = phase_dense()
     if "whisper" in phases:

@@ -18,6 +18,7 @@ _MODULES = {
     "qwen2-vl-72b": "qwen2_vl_72b",
     "mixtral-8x22b": "mixtral_8x22b",
     "whisper-medium": "whisper_medium",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 NAMES = tuple(_MODULES)
 

@@ -33,7 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import head_stripes
+from repro_torch.launch.mesh import head_stripes, to
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import ExecContext
 from repro_torch.models.transformer import forward
@@ -216,12 +216,15 @@ def chunked_prefill(params: dict, cfg: ModelConfig, ctx: ExecContext,
 
 
 def history_to_decode_caches(cfg: ModelConfig, history: dict,
-                             max_seq: int) -> Tuple[dict, torch.Tensor]:
+                             max_seq: int, ctx: Optional[ExecContext] = None
+                             ) -> Tuple[dict, torch.Tensor]:
     """Dense history -> dense decode caches in natural order, padded to
     ``max_seq`` (the prefill->decode KV hand-off of the dense oracle).
     SSM layers hand their state over as it is, and so does the cross KV;
     a model with no attention layer gets ``cache_len`` 0, as in the
-    reference."""
+    reference.  Under a ``ctx`` whose ``kv_split_axis`` has more than one
+    position the attention caches come as per-position sequence shards
+    (``shard_dense_caches``), the layout the split-KV decode reads."""
     caches = {}
     cache_len = None
     for i, spec in enumerate(cfg.pattern):
@@ -249,4 +252,35 @@ def history_to_decode_caches(cfg: ModelConfig, history: dict,
         ssm = history["0"]["self"]["ssm"]
         cache_len = torch.zeros((ssm.shape[1],), dtype=torch.int32,
                                 device=ssm.device)
+    if ctx is not None and ctx.mesh is not None \
+            and ctx.axis_size(ctx.kv_split_axis) > 1:
+        caches = shard_dense_caches(cfg, caches, ctx)
     return caches, cache_len
+
+
+def shard_dense_caches(cfg: ModelConfig, caches: dict,
+                       ctx: ExecContext) -> dict:
+    """Lay dense decode caches out for the split-KV decode: each attention
+    layer's k/v (n_blocks, B, S_max, KVH, D) becomes a list of its
+    contiguous sequence shards (n_blocks, B, S_max / n, KVH, D), shard i
+    on position i of ``ctx.kv_split_axis`` (the reference's cache
+    sharding P(..., split_axis, ...)).  A tick then writes its token in
+    place into the one shard owning it (models/attention.py), so no tick
+    copies or re-splits the cache.  Other leaves are handed on as they
+    are."""
+    devices = ctx.mesh.positions(ctx.kv_split_axis)
+    n = len(devices)
+    out = {}
+    for i, spec in enumerate(cfg.pattern):
+        ent = dict(caches[str(i)])
+        if spec.mixer == "attn":
+            kv = ent["self"]
+            S_max = kv["k"].shape[2]
+            if S_max % n:
+                raise ValueError(f"a dense cache of {S_max} slots does not "
+                                 f"split over {n} positions")
+            ent["self"] = {name: [to(x.contiguous(), d) for x, d in zip(
+                torch.chunk(kv[name], n, dim=2), devices)]
+                for name in ("k", "v")}
+        out[str(i)] = ent
+    return out

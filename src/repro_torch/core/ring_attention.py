@@ -37,9 +37,21 @@ side by side, on q's device.  Where the KV heads do not divide the TP
 axis (n_kv < tp) they stay whole, replicated over TP, and each call
 slices the range its query heads read (``head_shard``).
 
-The zigzag causal skip (``_ring_zigzag_skip``), ``split_kv_decode`` /
-``sharded_cache_update`` (dense split-KV decode) and ``sp_ssd`` (the
-sequence-parallel SSD scan) are later slices of the port.
+Also here:
+
+* ``zigzag_skip`` of the dense ring (``_ring_zigzag_skip``) — for a
+  prefill stored in zigzag order (core/zigzag.py) each position skips the
+  KV halves its queries cannot see: one K3 call at step 0, two at each
+  later step;
+* ``split_kv_decode`` — split-KV decode over a dense cache laid out as
+  per-position sequence shards (K4 per shard through
+  ``ops.decode_attention`` with the shard's ``kv_offset``, then the LSE
+  merge), the new token written in place into the owning shard;
+  ``sharded_cache_update`` is that write alone;
+* ``sp_ssd`` — the sequence-parallel SSD scan: K5 per position from a
+  zero state, the positions' (decay, state) summaries composed on the
+  host's loop behind the incoming CDSP state, and the fp32 correction of
+  each position's outputs by the state it should have started from.
 """
 
 from __future__ import annotations
@@ -151,7 +163,8 @@ def ring_attention_local(q, k, v, q_pos, kv_pos, *,
                          devices: Sequence[torch.device],
                          causal: bool = True, window: Optional[int] = None,
                          softmax_scale=None, impl: Optional[str] = None,
-                         head_shard: Optional[Tuple[int, int]] = None):
+                         head_shard: Optional[Tuple[int, int]] = None,
+                         zigzag_skip: bool = False):
     """The per-shard bodies of ring attention, one per position.
 
     q: list of (B, S_loc, H, D); k/v: lists of (B, S_kv_loc, KVH, D);
@@ -163,25 +176,100 @@ def ring_attention_local(q, k, v, q_pos, kv_pos, *,
     out the KV heads its query heads read before the ring, so the ring
     carries only those (reference ``head_shard_axis``).  Returns (o,
     lse): lists of (B, S_loc, H, D) in q's dtype and (B, H, S_loc)
-    fp32."""
+    fp32.  ``zigzag_skip`` (a zigzag layout: position d holds slices d
+    and 2n-1-d) takes ``_ring_zigzag_skip`` where the reference does:
+    causal, no window, more than one position, q and KV of one length,
+    and that length even."""
     if head_shard is not None:
         k, v = _read_heads(q, k, v, head_shard)
+    n = len(devices)
+    S, S_kv = q[0].shape[1], k[0].shape[1]
+    if zigzag_skip and causal and window is None and n > 1 \
+            and S == S_kv and S % 2 == 0:
+        return _ring_zigzag_skip(q, k, v, q_pos, kv_pos, devices=devices,
+                                 softmax_scale=softmax_scale, impl=impl)
     return _ring(q, q_pos, [(k, v, kv_pos, causal)], devices=devices,
                  window=window, softmax_scale=softmax_scale, impl=impl)
+
+
+def _halves(x: torch.Tensor, dim: int = 1):
+    """The early and late halves of a zigzag shard along ``dim``, each
+    contiguous (K3 reads contiguous bf16 operands)."""
+    h = x.shape[dim] // 2
+    return (x.narrow(dim, 0, h).contiguous(),
+            x.narrow(dim, h, x.shape[dim] - h).contiguous())
+
+
+def _ring_zigzag_skip(q, k, v, q_pos, kv_pos, *,
+                      devices: Sequence[torch.device], softmax_scale,
+                      impl: Optional[str]):
+    """Causal-skip ring attention for the zigzag layout (reference
+    ``_ring_zigzag_skip``).
+
+    Position d's queries are slices {d, 2n-1-d} ("early" / "late"), and
+    the KV it holds at ring step t came from position j = (d - t) % n,
+    slices {j, 2n-1-j}.  Causality gives, for t > 0:
+      q_late  x kv_early: always fully visible (computed every step);
+      q_early x kv_early: visible iff j < d;  exactly one of these two
+      q_late  x kv_late:  visible iff j > d;  is visible (pair B);
+      q_early x kv_late:  never visible (skipped).
+    The reference computes B as a data select so that every device runs
+    one program; here each position knows d and j on the host, so it
+    launches only the pair B that is visible.  Step 0 (the local
+    diagonal) is one causal call over the whole shard.  Position masks
+    inside K3 do the rest."""
+    def attend(qq, qp, kk, vv, kp):
+        return ops.attention(qq, kk, vv, qp, kp, causal=True,
+                             softmax_scale=softmax_scale, with_lse=True,
+                             impl=impl)
+
+    n = len(devices)
+    qh = [(_halves(q[i]), _halves(q_pos[i])) for i in range(n)]
+    acc = [{"e": _init(qe), "l": _init(ql)} for (qe, ql), _ in qh]
+    k_c, v_c, p_c = list(k), list(v), list(kv_pos)
+    for t in range(n):
+        for d in range(n):
+            a = acc[d]
+            if t == 0:
+                o_i, lse_i = attend(q[d], q_pos[d], k_c[d], v_c[d], p_c[d])
+                oe, ol = _halves(o_i)
+                le, ll = _halves(lse_i, 2)
+                a["e"] = _merge(*a["e"], oe, le)
+                a["l"] = _merge(*a["l"], ol, ll)
+                continue
+            (q_e, q_l), (qp_e, qp_l) = qh[d]
+            k_e, k_l = _halves(k_c[d])
+            v_e, v_l = _halves(v_c[d])
+            kp_e, kp_l = _halves(p_c[d])
+            # A: q_late x kv_early, always fully visible
+            a["l"] = _merge(*a["l"], *attend(q_l, qp_l, k_e, v_e, kp_e))
+            # B: (q_early x kv_early) if j < d else (q_late x kv_late)
+            if (d - t) % n < d:
+                a["e"] = _merge(*a["e"], *attend(q_e, qp_e, k_e, v_e, kp_e))
+            else:
+                a["l"] = _merge(*a["l"], *attend(q_l, qp_l, k_l, v_l, kp_l))
+        if t != n - 1:
+            k_c, v_c, p_c = (ring_shift(x, devices) for x in (k_c, v_c, p_c))
+    return ([torch.cat([a["e"][0], a["l"][0]], dim=1).to(qi.dtype)
+             for a, qi in zip(acc, q)],
+            [torch.cat([a["e"][1], a["l"][1]], dim=2) for a in acc])
 
 
 def ring_attention(q, k, v, q_pos, kv_pos, *, mesh, sp_axis: str,
                    head_axis: Optional[str] = None,
                    kv_head_axis: Optional[str] = None,
                    causal: bool = True, window: Optional[int] = None,
-                   softmax_scale=None, impl: Optional[str] = None):
+                   softmax_scale=None, impl: Optional[str] = None,
+                   zigzag_skip: bool = False):
     """Global-view ring attention: q (B, S, H, D), k/v (B, S_kv, KVH, D)
     and their positions ((S,) or (B, S) int32) on position 0's device,
     both sequence dims split contiguously over ``sp_axis``.  With
     ``head_axis`` (TP) each TP index rings its slice of the query heads
     over its SP column; ``kv_head_axis`` (the same axis, when KVH divides
     it) slices the KV heads alike, else every TP index slices the KV
-    heads its queries read.  Returns (B, S, H, D) on q's device."""
+    heads its queries read.  ``zigzag_skip`` enables the causal-skip path
+    (valid only when the storage layout is zigzag).  Returns (B, S, H, D)
+    on q's device."""
     if kv_head_axis is not None and kv_head_axis != head_axis:
         raise ValueError(f"kv_head_axis={kv_head_axis!r} needs the query "
                          f"heads on the same axis, not {head_axis!r}")
@@ -200,7 +288,7 @@ def ring_attention(q, k, v, q_pos, kv_pos, *, mesh, sp_axis: str,
             devices=devices, causal=causal, window=window,
             softmax_scale=softmax_scale, impl=impl,
             head_shard=(t, tp) if head_axis is not None
-            and kv_head_axis is None else None)
+            and kv_head_axis is None else None, zigzag_skip=zigzag_skip)
         outs.append(unsplit(o, q.device))
     return torch.cat(outs, dim=2)
 
@@ -445,3 +533,173 @@ def ring_paged_prefill(q, k, v, q_pos, kv_pos, k_pool, v_pool, block_tables,
             and not sharded else None, active_shards=active_shards)
         outs.append(unsplit(o, q.device))
     return torch.cat(outs, dim=2)
+
+
+# ----------------------------------------------------- dense split-KV decode
+def _shards(cache, devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """A dense cache's per-position sequence shards, shard i on position
+    i of the split axis."""
+    if not isinstance(cache, (list, tuple)) or len(cache) != len(devices):
+        raise ValueError(
+            "a split-KV dense cache is a list of per-position sequence "
+            f"shards, one for each of {len(devices)} positions "
+            "(core.cdsp.shard_dense_caches)")
+    return list(cache)
+
+
+def _owner_write(k_loc, v_loc, k_new, v_new, positions, idx: int) -> None:
+    """Write one token's K/V a row into shard ``idx`` of a sequence-
+    sharded cache, in place, for the rows whose global position falls in
+    the shard (reference ``sharded_cache_update``'s body)."""
+    s_loc = k_loc.shape[1]
+    local = positions.long() - idx * s_loc
+    rows = torch.nonzero((local >= 0) & (local < s_loc)).flatten()
+    if rows.numel():
+        k_loc[rows, local[rows]] = k_new[rows].to(k_loc.dtype)
+        v_loc[rows, local[rows]] = v_new[rows].to(v_loc.dtype)
+
+
+def split_kv_decode_local(q, k_loc, v_loc, lengths, *, idx: int,
+                          window: Optional[int] = None, softmax_scale=None,
+                          impl: Optional[str] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shard ``idx``'s partial of a flash decode over a sequence-sharded
+    dense cache: q (B, H, D); k_loc/v_loc (B, S_loc, KVH, D), keys at
+    global positions ``idx * S_loc + j``; lengths (B,) GLOBAL valid
+    lengths.  One K4 call (``ops.decode_attention`` with ``kv_offset``)
+    masks by global position, so a window that straddles shards needs no
+    special case, and a shard past a row's length gives o = 0 and lse =
+    NEG_INF (weight 0 in the merge).  (The reference clips a local length
+    instead; both select the same keys.)  Returns (o, lse)."""
+    return ops.decode_attention(q, k_loc, v_loc, lengths, window=window,
+                                softmax_scale=softmax_scale, with_lse=True,
+                                kv_offset=idx * k_loc.shape[1], impl=impl)
+
+
+def split_kv_decode(q, k_cache, v_cache, lengths, *, mesh, split_axis,
+                    window: Optional[int] = None, softmax_scale=None,
+                    impl: Optional[str] = None, k_new=None, v_new=None):
+    """Split-KV decode over a sequence-sharded dense cache: ship the tiny
+    queries to the KV, never the KV to the queries.
+
+    q (B, H, D) on position 0's device.  k_cache/v_cache: the cache's
+    per-position sequence shards, a list of (B, S_loc, KVH, D) with shard
+    i on position i of ``split_axis`` (``core.cdsp.shard_dense_caches``
+    lays them out).  ``split_axis`` may be a tuple of
+    axes (the collapsed split; shard order row-major).  With (k_new,
+    v_new) (B, KVH, D) the new token's KV is written in place into the
+    shard owning position ``lengths`` (which then EXCLUDES the new token;
+    attention runs over lengths + 1).  Each shard computes its partial
+    (K4), the partials meet on q's device and merge by LSE.  Returns (o,
+    k_cache, v_cache)."""
+    devices = mesh.positions(split_axis)
+    ks, vs = _shards(k_cache, devices), _shards(v_cache, devices)
+    if k_new is not None:
+        for i, d in enumerate(devices):
+            _owner_write(ks[i], vs[i], to(k_new, d), to(v_new, d),
+                         to(lengths, d), i)
+        lengths = lengths + 1
+    parts = [split_kv_decode_local(to(q, d), ks[i], vs[i], to(lengths, d),
+                                   idx=i, window=window,
+                                   softmax_scale=softmax_scale, impl=impl)
+             for i, d in enumerate(devices)]
+    o = _lse_merge_over_axis([p[0] for p in parts], [p[1] for p in parts],
+                             q.device).to(q.dtype)
+    return o, k_cache, v_cache
+
+
+def sharded_cache_update(k_cache, v_cache, k_new, v_new, positions, *,
+                         mesh, split_axis):
+    """Write one token's KV a row at ``positions`` (B,) into a sequence-
+    sharded dense cache without leaving the sharded layout: the write
+    lands in place in the shard owning each position.  Caches as in
+    ``split_kv_decode``.  Returns (k_cache, v_cache)."""
+    devices = mesh.positions(split_axis)
+    ks, vs = _shards(k_cache, devices), _shards(v_cache, devices)
+    for i, d in enumerate(devices):
+        _owner_write(ks[i], vs[i], to(k_new, d), to(v_new, d),
+                     to(positions, d), i)
+    return k_cache, v_cache
+
+
+# ------------------------------------------------ sequence-parallel SSD
+def _ssd_scan_combine(a, b):
+    """Compose segment summaries (decay, state): apply segment b after
+    a."""
+    da, sa = a
+    db, sb = b
+    return da * db, sa * db[..., None, None] + sb
+
+
+def sp_ssd_local(x, dt, A, Bm, Cm, *, devices: Sequence[torch.device],
+                 chunk: int = 128, h0=None, impl: Optional[str] = None
+                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The per-position bodies of the sequence-parallel SSD scan
+    (contiguous layout): x/dt/Bm/Cm lists of each position's contiguous
+    sequence shard, (B, S_loc, H, P) / (B, S_loc, H) / (B, S_loc, G, N),
+    part i on ``devices[i]``; A (H,); h0 (B, H, P, N) or None, the
+    incoming CDSP state.
+
+    Each position scans its shard from a zero state (K5 through
+    ``ops.ssd``) and summarises it as (decay d_i = exp(sum dt A), state
+    s_i).  The reference composes the summaries with a ppermute prefix
+    scan; here the host's loop composes them position by position, the
+    summaries moving one position on, so position i starts from h_in_i =
+    the composition of s_0..s_{i-1}, plus h0 carried through their decays.
+    Each position then corrects its outputs in fp32, y += C exp(a_cum)
+    h_in, and its state becomes h_in d_i + s_i; the last position's is
+    the final state.  Returns (y parts in x's dtype, h_out parts fp32)."""
+    n = len(devices)
+    G = Bm[0].shape[2]
+    outs, h_in, d_excl = [], None, None
+    for i in range(n):
+        dev = devices[i]
+        y0, s_loc = ops.ssd(x[i], dt[i], to(A, dev), Bm[i], Cm[i], h0=None,
+                            chunk=chunk, impl=impl)
+        a = dt[i].float() * to(A, dev).float()[None, None, :]    # (B,S,H)
+        d_loc = torch.exp(a.sum(dim=1))                           # (B,H)
+        hi = (torch.zeros_like(s_loc) if h_in is None else to(h_in, dev))
+        if h0 is not None:
+            de = (torch.ones_like(d_loc) if d_excl is None
+                  else to(d_excl, dev))
+            hi = hi + to(h0, dev).float() * de[..., None, None]
+        rep = x[i].shape[2] // G
+        Cf = torch.repeat_interleave(Cm[i].float(), rep, dim=2)   # (B,S,H,N)
+        a_cum = torch.cumsum(a, dim=1)
+        y_corr = torch.einsum("bshn,bsh,bhpn->bshp", Cf, torch.exp(a_cum),
+                              hi)
+        outs.append(((y0.float() + y_corr).to(x[i].dtype),
+                     hi * d_loc[..., None, None] + s_loc))
+        # the prefix of summaries 0..i, without h0 (reference: the
+        # inclusive scan over (d, s))
+        if h_in is None:
+            d_excl, h_in = d_loc, s_loc
+        else:
+            d_excl, h_in = _ssd_scan_combine(
+                (to(d_excl, dev), to(h_in, dev)), (d_loc, s_loc))
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def sp_ssd(x, dt, A, Bm, Cm, *, mesh, sp_axis: str, chunk: int = 128,
+           h0=None, head_axis: Optional[str] = None,
+           impl: Optional[str] = None):
+    """Sequence-parallel SSD: x (B, S, H, P), dt (B, S, H), Bm/Cm (B, S,
+    G, N) and h0 (B, H, P, N) on position 0's device, the sequence split
+    contiguously over ``sp_axis``.  With ``head_axis`` (TP; the caller
+    passes it only for G == 1) each TP index scans its slice of the heads
+    over its SP column.  Returns (y (B, S, H, P) in x's dtype, the final
+    state (B, H, P, N) fp32), both on x's device."""
+    lines = _lines(mesh, sp_axis, head_axis)
+    tp = len(lines)
+    ys, hs = [], []
+    for t, devices in enumerate(lines):
+        y, h = sp_ssd_local(
+            split(head_part(x, t, tp, 2), devices),
+            split(head_part(dt, t, tp, 2), devices),
+            head_part(A, t, tp, 0), split(Bm, devices), split(Cm, devices),
+            devices=devices, chunk=chunk,
+            h0=None if h0 is None else head_part(h0, t, tp, 1),
+            impl=impl)
+        ys.append(unsplit(y, x.device))
+        hs.append(to(h[-1], x.device))
+    return torch.cat(ys, dim=2), torch.cat(hs, dim=1)

@@ -11,7 +11,8 @@ runs a 4-position mesh as four logical positions on ``cuda:0``).
   reference's ``compat.make_mesh`` (``make_mesh`` here).
 * ``make_context(mesh, mode)`` — the axis roles of each execution mode
   (reference ``launch/mesh.py``): ``"prefill"`` (ring attention over
-  ``sp_axis``), ``"decode"`` (split-KV over ``kv_split_axis``) and
+  ``sp_axis``), ``"decode"`` (split-KV over ``kv_split_axis`` = "model",
+  the batch on ``dp_axis`` = "data") and
   ``"serve_paged"`` (both on the "data" axis, so a page's stripe position
   lives on the same position in the prefill and the decode pool).  A
   mesh with a "model" axis of more than one position (the reference's
@@ -66,20 +67,25 @@ class Mesh:
                              f"devices, got {len(self.devices)}")
         self.shape = dict(zip(self.axis_names, sizes))
 
-    def positions(self, axis: str, **at: int) -> Tuple[torch.device, ...]:
+    def positions(self, axis, **at: int) -> Tuple[torch.device, ...]:
         """The devices along ``axis``, every other axis at the index ``at``
         names (default 0), in axis order: entry i is the position with
-        ``axis_index == i`` on that line of the mesh."""
+        ``axis_index == i`` on that line of the mesh.  A tuple of axes is
+        the reference's collapsed axis: its index runs row-major over
+        them (``_axis_index_multi``)."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
         for a, j in at.items():
-            if a == axis or not 0 <= j < self.shape[a]:
+            if a in axes or not 0 <= j < self.shape[a]:
                 raise ValueError(f"{a}={j} does not fix a line along "
                                  f"{axis!r} of {self}")
-        sizes = list(self.shape.values())
         out = []
-        for j in range(self.shape[axis]):
+        for flat_line in range(math.prod(self.shape[a] for a in axes)):
+            idx, rest = {}, flat_line
+            for a in reversed(axes):
+                idx[a], rest = rest % self.shape[a], rest // self.shape[a]
             flat = 0
-            for a, n in zip(self.axis_names, sizes):
-                flat = flat * n + (j if a == axis else at.get(a, 0))
+            for a, n in self.shape.items():
+                flat = flat * n + (idx[a] if a in idx else at.get(a, 0))
             out.append(self.devices[flat])
         return tuple(out)
 
@@ -107,6 +113,7 @@ def make_context(mesh: Mesh, mode: str, *, impl: Optional[str] = None,
                  window: Optional[int] = None) -> ExecContext:
     """Mesh-axis roles per execution mode (reference launch/mesh.py).
 
+    ``"train"`` is not ported (training is a later part of the port).
     ``serve_paged`` is the paged serving engine's context: one context
     drives chunk prefill (ring attention over ``sp_axis``) and paged
     decode (split-KV over ``kv_split_axis``), and the engine's pools
@@ -119,7 +126,7 @@ def make_context(mesh: Mesh, mode: str, *, impl: Optional[str] = None,
     if mode == "prefill":
         return ExecContext(sp_axis="data", **common)
     if mode == "decode":
-        return ExecContext(kv_split_axis="model", **common)
+        return ExecContext(dp_axis="data", kv_split_axis="model", **common)
     if mode == "serve_paged":
         return ExecContext(sp_axis="data", kv_split_axis="data", **common)
     raise ValueError(f"mode {mode!r}: the port's mesh contexts are "

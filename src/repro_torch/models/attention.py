@@ -25,8 +25,15 @@ on the owning shard).  With ``ctx.tp_axis`` (TP x SP, reference
 the KV heads and the pools too where KVH divides it; each TP index runs
 the island on its heads (K3 / K1 per SP and TP position).  An unsharded
 pool under an active split or ring axis raises ``ValueError``: the
-layouts must agree.  Dense decode under
-``ctx.kv_split_axis`` (``split_kv_decode``) is a later slice.
+layouts must agree.  Dense decode under ``ctx.kv_split_axis`` takes a
+cache laid out as per-position sequence shards (lists,
+``core.cdsp.shard_dense_caches``): ``split_kv_decode`` writes the new
+token into the owning shard and runs K4 per shard with an LSE merge; the
+window-slice branch writes with ``sharded_cache_update`` and attends
+over the window's keys gathered from the shards, the ring-buffer branch
+over the shards' live slots.  A prefill stored in zigzag order runs the
+causal-skip ring under ``ctx.zigzag_skip`` (reference
+attention.py:318).
 ``cross_attention`` is the encoder-decoder's cross attention over the
 encoder's K/V, with the ``x_``-prefixed weights: "cross" in prefill and
 train (K3 on the card), "cross_decode" in a decode tick (K4 on the card).
@@ -40,7 +47,10 @@ import torch
 
 from repro_torch.core.ring_attention import (ring_attention,
                                              ring_paged_prefill,
-                                             sharded_paged_decode)
+                                             sharded_cache_update,
+                                             sharded_paged_decode,
+                                             split_kv_decode)
+from repro_torch.launch.mesh import to
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
@@ -178,11 +188,9 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
     if mode == "decode":
         assert cache is not None and cache_len is not None
-        if split_n > 1:
-            raise NotImplementedError(
-                "dense decode under ExecContext.kv_split_axis "
-                "(split_kv_decode, K4 per shard) is a later slice of the "
-                "port")
+        if isinstance(cache["k"], (list, tuple)) or split_n > 1:
+            return _split_dense_decode(q, k, v, p, cfg, ctx, cache,
+                                       cache_len, window)
         rows = torch.arange(B, device=x.device)
         S_max = cache["k"].shape[1]
         ring = ctx.ring_cache and window is not None and S_max <= window
@@ -261,8 +269,71 @@ def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
         o = ring_attention(q, k, v, pos2d, kv_pos, mesh=ctx.mesh,
                            sp_axis=ctx.sp_axis, head_axis=h_ax,
                            kv_head_axis=kv_ax, causal=causal, window=window,
-                           impl=ctx.impl)
+                           impl=ctx.impl,
+                           zigzag_skip=ctx.zigzag_skip and history is None)
     else:
         o = ops.attention(q, k, v, pos2d, kv_pos, causal=causal,
                           window=window, impl=ctx.impl)
     return out_proj(o, p), new_cache
+
+
+def _window_keys(shards, idx: torch.Tensor, device) -> torch.Tensor:
+    """Keys ``idx`` (B, W) global positions of a sequence-sharded cache
+    (list of (B, S_loc, KVH, D)), gathered from the shards that hold them
+    onto ``device``: (B, W, KVH, D)."""
+    s_loc = shards[0].shape[1]
+    out = None
+    for i, c in enumerate(shards):
+        loc = to(idx, c.device) - i * s_loc
+        mine = (loc >= 0) & (loc < s_loc)
+        rows = torch.arange(idx.shape[0], device=c.device)[:, None]
+        part = c[rows, loc.clamp(0, s_loc - 1)] * mine[..., None, None]
+        part = to(part, device)
+        out = part if out is None else out + part
+    return out
+
+
+def _split_dense_decode(q, k, v, p, cfg: ModelConfig, ctx: ExecContext,
+                        cache: dict, cache_len, window):
+    """Dense decode over a cache laid out as per-position sequence shards
+    on ``ctx.kv_split_axis`` (reference attention.py:182-221).  The query
+    heads stay whole on every shard, as the reference's island takes them
+    (no TP slicing).  The shards are written in place and handed back."""
+    if not isinstance(cache["k"], (list, tuple)) \
+            or ctx.kv_split_axis is None or ctx.mesh is None:
+        raise ValueError(
+            "dense decode under ExecContext.kv_split_axis="
+            f"{ctx.kv_split_axis!r} needs the cache as per-position "
+            "sequence shards (core.cdsp.shard_dense_caches), and a shard "
+            "list needs the split axis and a mesh")
+    n = ctx.axis_size(ctx.kv_split_axis)
+    if len(cache["k"]) != n:
+        raise ValueError(f"a dense cache of {len(cache['k'])} shards over a "
+                         f"split axis of {n} positions")
+    qd, kn, vn = q[:, 0], k[:, 0], v[:, 0]
+    S_max = n * cache["k"][0].shape[1]
+    kw = dict(mesh=ctx.mesh, split_axis=ctx.kv_split_axis)
+    if ctx.ring_cache and window is not None and S_max <= window:
+        # the ring buffer's slot, then every live slot of the shards
+        sharded_cache_update(cache["k"], cache["v"], kn, vn,
+                             cache_len % S_max, **kw)
+        o, _, _ = split_kv_decode(qd, cache["k"], cache["v"],
+                                  torch.clamp(cache_len + 1, max=S_max),
+                                  impl=ctx.impl, **kw)
+    elif ctx.window_slice and window is not None and S_max >= 4 * window:
+        # persist the new KV in its shard, attend over the window's keys
+        sharded_cache_update(cache["k"], cache["v"], kn, vn, cache_len,
+                             **kw)
+        wbuf = window + 8
+        start = torch.clamp(cache_len - (wbuf - 1), 0, S_max - wbuf)
+        idx = (start[:, None] + torch.arange(
+            wbuf, device=q.device)[None]).long()
+        o = ops.decode_attention(
+            qd, _window_keys(cache["k"], idx, q.device),
+            _window_keys(cache["v"], idx, q.device),
+            cache_len + 1 - start, window=window, impl=ctx.impl)
+    else:
+        o, _, _ = split_kv_decode(qd, cache["k"], cache["v"], cache_len,
+                                  window=window, impl=ctx.impl, k_new=kn,
+                                  v_new=vn, **kw)
+    return out_proj(o[:, None], p), {"k": cache["k"], "v": cache["v"]}

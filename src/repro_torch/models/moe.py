@@ -1,10 +1,17 @@
-"""Mixture-of-Experts FFN: capacity-based routing with two dispatch
-strategies on one device.
+"""Mixture-of-Experts FFN: capacity-based routing with three execution
+strategies.
 
 1. one-hot einsum dispatch (the default) — the dispatch and combine
    products cost O(g·E·C·d);
 2. gather/scatter dispatch (``ctx.moe_gather_dispatch``) — the same
-   routing with ~zero dispatch FLOPs.
+   routing with ~zero dispatch FLOPs;
+3. expert parallelism (``ctx.moe_ep`` on a mesh, ``_moe_ep``) — the
+   experts split over ``ctx.moe_ep_axis()``, position i owning experts
+   [i·E/n, (i+1)·E/n); each token position routes its groups and
+   dispatches by gather, the slot tensor is regrouped by owner (the
+   reference's tiled ``all_to_all``), each owner runs its experts, and
+   the outputs are regrouped back and combined.  ``moe_layer`` takes it
+   exactly where the reference does (``_ep_applies``).
 
 Tokens are routed in groups of ``GROUP_SIZE`` (the last group padded with
 zero rows, which are routed and take capacity like any other).  Tokens
@@ -15,9 +22,7 @@ Switch-style load-balance auxiliary loss is returned for training.
 Every cast point of the reference (models/moe.py) is kept: the router
 product in the activation dtype, the softmax and the top-k renormalisation
 in fp32, the dispatch one-hot and the combine weights rounded to the
-activation dtype before their products.  Expert parallelism (the
-reference's ``_moe_ep``) needs a mesh and is not ported: ``moe_layer``
-takes the reference's local branch, as the reference does without a mesh.
+activation dtype before their products.
 """
 
 from __future__ import annotations
@@ -28,11 +33,14 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import to
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import mlp
 from repro_torch.models.sharding import ExecContext
 
 GROUP_SIZE = 512
+# expert-parallel islands run (``_moe_ep``), for the card's smoke run
+ep_calls = 0
 
 
 def _capacity(g: int, top_k: int, n_experts: int, cf: float) -> int:
@@ -164,6 +172,28 @@ def _ungroup(y: torch.Tensor, T: int, B: int, S: int, d: int
     return y.reshape(-1, d)[:T].reshape(B, S, d)
 
 
+def _token_axes(ctx: ExecContext, S: int):
+    """The axes a layer's token groups are split over (reference
+    ``_token_axes``; the pod axis is not ported): a one-token tick's are
+    the batch axes, a chunk's the SP axis, else the batch axes."""
+    if S == 1:
+        return ctx.batch_axes
+    if ctx.sp_axis is not None:
+        return (ctx.sp_axis,)
+    return ctx.batch_axes
+
+
+def _ep_applies(ctx: ExecContext, E: int, n_groups: int,
+                token_axes) -> bool:
+    """The reference's EP condition: ``moe_ep`` on a mesh, the experts
+    dividing over the EP axis and the token groups over the token
+    axes."""
+    ep_ax = ctx.moe_ep_axis()
+    tok_div = math.prod(ctx.axis_size(a) for a in token_axes or ())
+    return (ep_ax is not None and E % ctx.axis_size(ep_ax) == 0
+            and n_groups % max(tok_div, 1) == 0 and ctx.mesh is not None)
+
+
 # ------------------------------------------------------------- main layer
 def moe_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: ExecContext
               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -174,17 +204,81 @@ def moe_layer(x: torch.Tensor, p: dict, cfg: ModelConfig, ctx: ExecContext
     g = min(GROUP_SIZE, B * S)
     C = _capacity(g, m.top_k, E, m.capacity_factor)
     xt, T, _ = _group_tokens(x, g)
-    r = _route(xt, p["router"], m, E, C)
-    if ctx.moe_gather_dispatch:
-        xe, slots = _dispatch_gather(xt, r, E, C)
-        y = _combine_gather(_expert_ffn(xe, p["experts"], cfg.mlp_type), r,
-                            slots, E, C)
+    token_axes = _token_axes(ctx, S)
+    if _ep_applies(ctx, E, xt.shape[0], token_axes):
+        y, aux = _moe_ep(xt, p, cfg, ctx, E, C, token_axes)
     else:
-        xe, pos_oh = _dispatch_einsum(xt, r, E, C)
-        y = _combine_einsum(_expert_ffn(xe, p["experts"], cfg.mlp_type), r,
-                            pos_oh)
-    aux = _aux_loss(r, E)
+        r = _route(xt, p["router"], m, E, C)
+        if ctx.moe_gather_dispatch:
+            xe, slots = _dispatch_gather(xt, r, E, C)
+            y = _combine_gather(_expert_ffn(xe, p["experts"],
+                                            cfg.mlp_type), r, slots, E, C)
+        else:
+            xe, pos_oh = _dispatch_einsum(xt, r, E, C)
+            y = _combine_einsum(_expert_ffn(xe, p["experts"],
+                                            cfg.mlp_type), r, pos_oh)
+        aux = _aux_loss(r, E)
     y = _ungroup(y, T, B, S, d)
     if m.n_shared:
         y = y + mlp(x, p["shared"], cfg.mlp_type)
     return y, aux
+
+
+# -------------------------------------------------------- expert parallel
+def _moe_ep(xt: torch.Tensor, p: dict, cfg: ModelConfig, ctx: ExecContext,
+            E: int, C: int, token_axes):
+    """Expert-parallel MoE on the mesh driven by this process (reference
+    ``_moe_ep``).
+
+    The token groups ``xt`` (n_g, g, d) split contiguously over the
+    token axes' positions (one part, on position 0, when the tokens are
+    replicated: the reference then computes the same part on every
+    position).  Each part is routed and dispatched by gather into its
+    slots (n_l, E, C, d).  The owner of experts [i·E/n, (i+1)·E/n), the
+    i-th position of the EP axis, takes those experts' slots of every
+    part (the tiled ``all_to_all``), runs its experts on views of the
+    stacked weights (never copies) and hands each part its slots back
+    (the return ``all_to_all``).  The reference's TP ``psum`` over
+    ``d_expert`` has nothing to sum: the weights are whole.  ``aux`` is
+    the mean of the parts' losses (``pmean`` over the token axes).  Each
+    call adds one to ``ep_calls``."""
+    global ep_calls
+    ep_calls += 1
+    m = cfg.moe
+    ep_ax = ctx.moe_ep_axis()
+    owners = ctx.mesh.positions(ep_ax)
+    n_ep = len(owners)
+    e_loc = E // n_ep
+    holders = (ctx.mesh.positions(token_axes if len(token_axes) > 1
+                                  else token_axes[0])
+               if token_axes else (ctx.device,))
+    parts = [to(xp.contiguous(), dev) for xp, dev in
+             zip(torch.chunk(xt, len(holders), dim=0), holders)]
+    routes, slots, sent = [], [], []
+    for xp, dev in zip(parts, holders):
+        r = _route(xp, to(p["router"], dev), m, E, C)
+        xe, st = _dispatch_gather(xp, r, E, C)             # (n_l, E, C, d)
+        routes.append(r)
+        slots.append(st)
+        sent.append(xe.transpose(0, 1))                    # (E, n_l, C, d)
+    got = []
+    for i, dev in enumerate(owners):
+        # owner i's experts' slots from every part, side by side
+        xe_i = torch.cat([to(s[i * e_loc:(i + 1) * e_loc], dev)
+                          for s in sent], dim=1)           # (E/n, Σn_l, C, d)
+        exp_i = {k: to(w[i * e_loc:(i + 1) * e_loc], dev)
+                 for k, w in p["experts"].items()}
+        ye_i = _expert_ffn(xe_i.reshape(1, e_loc, -1, xe_i.shape[-1]),
+                           exp_i, cfg.mlp_type)
+        got.append(ye_i.reshape(xe_i.shape))
+    ys, auxes, off = [], [], 0
+    for xp, dev, r, st in zip(parts, holders, routes, slots):
+        n_l = xp.shape[0]
+        ye = torch.cat([to(y[:, off:off + n_l], dev) for y in got],
+                       dim=0).transpose(0, 1)               # (n_l, E, C, d)
+        off += n_l
+        ys.append(to(_combine_gather(ye.contiguous(), r, st, E, C),
+                     xt.device))
+        auxes.append(to(_aux_loss(r, E), xt.device))
+    return torch.cat(ys, dim=0), torch.stack(auxes).mean()
+

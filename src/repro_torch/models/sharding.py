@@ -5,9 +5,14 @@ its shard_map islands.  The port's context carries the roles the serving
 path reads: ``mesh`` (a ``launch.mesh.Mesh`` driven by this one process,
 or None for one device), ``sp_axis`` (ring attention and the prefill
 pool's stripe), ``kv_split_axis`` (split-KV paged decode and the decode
-pool's stripe), ``tp_axis`` (attention heads, and the KV heads of the
-pools where they divide it: TP x SP) and ``active_pool_shards`` (the live
-stripe width), with the reference's helpers over them.  Outside the
+pool's stripe, and the dense split-KV decode; a tuple of axes is the
+reference's collapsed split, indexed row-major), ``tp_axis`` (attention
+heads, and the KV heads of the pools where they divide it: TP x SP),
+``dp_axis`` (the batch: read only where the reference's branches read it,
+such as expert parallelism's token split — one process never splits the
+batch), ``active_pool_shards`` (the live stripe width), ``zigzag_skip``
+(the causal-skip ring for a zigzag prefill layout) and ``moe_ep`` (expert
+parallelism), with the reference's helpers over them.  Outside the
 islands activations live whole on ``device``, position 0's device of the
 mesh, as a replicated GSPMD array would.
 
@@ -18,8 +23,9 @@ MoE dispatch strategy and the two sliding-window decode branches
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import torch
 
@@ -42,6 +48,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _axes(axis) -> Tuple[str, ...]:
+    """An axis or a tuple of axes as a tuple (None: none)."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 @dataclass(frozen=True)
 class ExecContext:
     # None: position 0's device of ``mesh``, or the CPU without a mesh
@@ -49,14 +62,22 @@ class ExecContext:
     impl: Optional[str] = None           # None: by device | "ref"
     window: Optional[int] = None         # runtime SWA override
     mesh: Optional["Mesh"] = None
-    sp_axis: Optional[str] = None        # sequence (ring attention)
-    kv_split_axis: Optional[str] = None  # split-KV paged decode
+    dp_axis: Optional[str] = None        # batch
+    sp_axis: Optional[str] = None        # sequence (ring attention, sp_ssd)
+    # split-KV decode (paged and dense); a tuple is a collapsed split
+    kv_split_axis: Optional[Union[str, Tuple[str, ...]]] = None
     tp_axis: Optional[str] = None        # attention heads (TP)
     # live stripe width of an elastically restriped paged pool (None: all
     # of its physical shards)
     active_pool_shards: Optional[int] = None
     # gather/scatter MoE dispatch instead of one-hot einsums
     moe_gather_dispatch: bool = False
+    # zigzag causal-skip ring attention (valid only when the prefill's
+    # storage layout is zigzag: core/zigzag.py)
+    zigzag_skip: bool = False
+    # expert parallelism: the experts split over moe_ep_axis(), each
+    # position computing its own experts' slots (models/moe.py)
+    moe_ep: bool = False
     # sliding-window dense decode: attend over a slice of window + 8 keys
     # of the full buffer (the new KV is still written into the buffer)
     window_slice: bool = False
@@ -72,17 +93,34 @@ class ExecContext:
             raise ValueError(f"ExecContext.device {dev} must be the mesh's "
                              f"position 0 device {first}")
         object.__setattr__(self, "device", dev)
-        for ax in (self.sp_axis, self.kv_split_axis, self.tp_axis):
+        for ax in (self.dp_axis, self.sp_axis, self.tp_axis,
+                   *_axes(self.kv_split_axis)):
             if ax is not None and self.mesh is not None \
                     and ax not in self.mesh.axis_names:
                 raise ValueError(f"axis {ax!r} is not an axis of "
                                  f"{self.mesh}")
 
     # ----------------------------------------------------------- helpers
-    def axis_size(self, axis: Optional[str]) -> int:
+    def axis_size(self, axis) -> int:
+        """Positions along ``axis``; a tuple of axes is their product."""
         if axis is None or self.mesh is None:
             return 1
-        return self.mesh.shape[axis]
+        return math.prod(self.mesh.shape[a] for a in _axes(axis))
+
+    @property
+    def batch_axes(self):
+        """Axes the batch dim is sharded over (the reference's pod axis
+        is not ported), or None."""
+        return (self.dp_axis,) if self.dp_axis is not None else None
+
+    def moe_ep_axis(self) -> Optional[str]:
+        """The axis the experts split over under ``moe_ep``: "data" where
+        the mesh has it, else ``dp_axis``, else ``sp_axis``."""
+        if not self.moe_ep or self.mesh is None:
+            return None
+        if "data" in self.mesh.axis_names:
+            return "data"
+        return self.dp_axis or self.sp_axis
 
     def shardable(self, dim: int, axis: Optional[str]) -> Optional[str]:
         """``axis`` if ``dim`` divides evenly over it (and it has more than

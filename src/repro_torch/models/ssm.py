@@ -1,8 +1,12 @@
-"""Mamba-2 (SSD) mixer block on one device.
+"""Mamba-2 (SSD) mixer block.
 
 Projections -> short causal depthwise conv over (x, B, C) -> SSD scan ->
 gated RMSNorm -> output projection (reference models/ssm.py).  Prefill and
-train run the chunked scan (K5 on the card); decode keeps a (conv window,
+train run the chunked scan (K5 on the card); on a mesh, where the chunk
+divides over ``ctx.sp_axis`` into whole scan chunks, the sequence-parallel
+scan ``sp_ssd`` (K5 per position, core/ring_attention.py), its heads split
+over ``ctx.tp_axis`` where G == 1 and they divide it; other chunks fall
+back to one scan.  Decode keeps a (conv window,
 SSD state) cache per layer and steps it in plain PyTorch.  A CDSP chunk
 takes the previous chunk's conv window and state as its cache and hands
 its own on: that is how an SSM's prefill is split into chunks.
@@ -16,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.compat import causal_depthwise_conv
+from repro_torch.core.ring_attention import sp_ssd
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -79,13 +84,17 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
                                   cache["ssm"])
         y = y[:, None]                                          # (B,1,H,P)
     else:
-        if ctx.sp_axis is not None and ctx.mesh is not None:
-            raise NotImplementedError(
-                "the sequence-parallel SSD scan over ctx.sp_axis (sp_ssd, "
-                "K5 per position) is a later slice of the port")
         h0 = None if cache is None else cache.get("ssm")
-        y, h_new = ops.ssd(xs, dt, A, Bm, Cm, h0=h0,
-                           chunk=min(s.chunk_size, S), impl=ctx.impl)
+        n = ctx.axis_size(ctx.sp_axis)
+        if (ctx.sp_axis is not None and ctx.mesh is not None
+                and S % n == 0 and (S // n) % min(s.chunk_size, S) == 0):
+            head_ax = ctx.shardable(H, ctx.tp_axis) if G == 1 else None
+            y, h_new = sp_ssd(xs, dt, A, Bm, Cm, mesh=ctx.mesh,
+                              sp_axis=ctx.sp_axis, chunk=s.chunk_size,
+                              h0=h0, head_axis=head_ax, impl=ctx.impl)
+        else:
+            y, h_new = ops.ssd(xs, dt, A, Bm, Cm, h0=h0,
+                               chunk=min(s.chunk_size, S), impl=ctx.impl)
 
     y = y + p["D"][None, None, :, None] * xs.float()
     y = y.reshape(B, -1, d_in).to(dtype)

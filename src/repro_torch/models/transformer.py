@@ -144,9 +144,9 @@ def _stack_forward(x, blocks_p, cfg: ModelConfig, ctx: ExecContext,
 
 
 def _restack(per_block: list, caches, mode: str):
-    """Stack per-block caches back over n_blocks.  A paged decode pool is
-    already the caller's stacked tensor (each block wrote its slice in
-    place), and decode reads the cross KV without changing it, so both
+    """Stack per-block caches back over n_blocks.  A paged decode pool, or
+    a dense decode cache in sequence shards, is already the caller's
+    stacked tensor (each block wrote its slice in place), and decode reads the cross KV without changing it, so both
     are handed back as they are rather than copied."""
     if mode not in ("prefill", "decode"):
         return None
@@ -158,6 +158,9 @@ def _restack(per_block: list, caches, mode: str):
             if src is not None and "block_table" in src:
                 ent[part] = {"k": src["k"], "v": src["v"],
                              "block_table": src["block_table"]}
+            elif src is not None and isinstance(src.get("k"), list):
+                # a dense cache in sequence shards: written in place
+                ent[part] = {"k": src["k"], "v": src["v"]}
             elif src is not None and part == "cross":
                 ent[part] = src
             else:

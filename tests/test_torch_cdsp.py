@@ -37,7 +37,7 @@ def _tokens(cfg, S, seed, batch=B):
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "yi-9b", "mamba2-1.3b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
 @pytest.mark.parametrize("chunks", [[16, 48], [8, 24, 32], [1, 63]])
 def test_chunked_equals_monolithic(name, chunks, reduced_params_cache):
     cfg, _, _, params = _setup(reduced_params_cache, name)

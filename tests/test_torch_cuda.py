@@ -1088,3 +1088,80 @@ def test_head_sliced_islands_and_restripe_on_card(dtype):
     for a, b in zip(pools, host):
         assert torch.equal(a[:, :-1].cpu(), b[:, :-1])
     assert torch.equal(pools[1][:, 2].cpu(), host[1][:, 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sp_family_islands_on_card(dtype):
+    """The islands of every family's sequence parallelism on 4 positions
+    of the one card against the plain path on the same positions: the
+    zigzag causal-skip ring (28 K3 calls: 4 at step 0, 2 a position at
+    each later step), the split-KV dense decode with its in-shard write
+    (rows ending inside a shard, on a shard boundary and shorter than a
+    shard; a window straddling shards; one K4 a shard) and sp_ssd with
+    an incoming state (one K5 a position)."""
+    dev = _card()
+    from repro_torch.core import ring_attention as ring
+    from repro_torch.core import zigzag as zz
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.mesh import make_mesh
+    dt = getattr(torch, dtype)
+    atol, rtol = (1e-4, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+    mesh = make_mesh((4,), ("x",), device="cuda")
+    g = torch.Generator().manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev, dt)
+
+    def close(a, b):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+
+    B, S, H, KVH, D = 2, 512, 8, 2, 128
+    q, k, v = rnd(B, S, H, D), rnd(B, S, KVH, D), rnd(B, S, KVH, D)
+    pos = zz.zigzag_positions(S, 4, device=dev)[None].expand(B, S)
+    before = flash_attention.launches
+    got = ring.ring_attention(q, k, v, pos, pos, mesh=mesh, sp_axis="x",
+                              zigzag_skip=True)
+    assert flash_attention.launches == before + 28
+    close(got, ring.ring_attention(q, k, v, pos, pos, mesh=mesh,
+                                   sp_axis="x", impl="ref"))
+
+    lens = torch.tensor([300, 383, 40, 127], dtype=torch.int32, device=dev)
+    qd = rnd(4, H, D)
+    kc, vc = rnd(4, S, KVH, D), rnd(4, S, KVH, D)
+    kn, vn = rnd(4, KVH, D), rnd(4, KVH, D)
+    for window in (None, 100):
+        ks = [x.contiguous() for x in kc.chunk(4, dim=1)]
+        vs = [x.contiguous() for x in vc.chunk(4, dim=1)]
+        ks_r, vs_r = [x.clone() for x in ks], [x.clone() for x in vs]
+        before = flash_decode.launches
+        o, _, _ = ring.split_kv_decode(qd, ks, vs, lens, mesh=mesh,
+                                       split_axis="x", window=window,
+                                       k_new=kn, v_new=vn)
+        assert flash_decode.launches == before + 4
+        o_r, _, _ = ring.split_kv_decode(qd, ks_r, vs_r, lens, mesh=mesh,
+                                         split_axis="x", window=window,
+                                         k_new=kn, v_new=vn, impl="ref")
+        close(o, o_r)
+        assert all(torch.equal(a, b) for a, b in zip(ks, ks_r))
+
+    Hs, P, N, chunk = 8, 64, 128, 64
+    xbc = rnd(1, S, Hs * P + 2 * N)
+    x = xbc[..., :Hs * P].reshape(1, S, Hs, P)
+    Bm = xbc[..., Hs * P:Hs * P + N].reshape(1, S, 1, N)
+    Cm = xbc[..., Hs * P + N:].reshape(1, S, 1, N)
+    dts = torch.exp(torch.empty(1, S, Hs).uniform_(-6.9, -2.3,
+                                                   generator=g)).to(dev)
+    A = -torch.empty(Hs).uniform_(1.0, 16.0, generator=g).to(dev)
+    h0 = (0.3 * torch.randn(1, Hs, P, N, generator=g)).to(dev)
+    before = ssd_scan.launches
+    y, h = ring.sp_ssd(x, dts, A, Bm, Cm, mesh=mesh, sp_axis="x",
+                       chunk=chunk, h0=h0)
+    assert ssd_scan.launches == before + 4
+    y_r, h_r = ring.sp_ssd(x, dts, A, Bm, Cm, mesh=mesh, sp_axis="x",
+                           chunk=chunk, h0=h0, impl="ref")
+    close(y, y_r)
+    torch.testing.assert_close(h, h_r, atol=1e-3, rtol=1e-3)

@@ -27,7 +27,7 @@ from repro_torch.models.transformer import forward
 DENSE_FAMILIES = ["chatglm3-6b", "nemotron-4-15b", "phi4-mini-3.8b",
                   "llama3-70b", "qwen2-vl-72b", "mixtral-8x22b"]
 ARCHS = ["llama3-8b", "yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b",
-         *DENSE_FAMILIES, "whisper-medium"]
+         *DENSE_FAMILIES, "whisper-medium", "jamba-1.5-large-398b"]
 ATTN_ARCHS = ["llama3-8b", "yi-9b", "qwen2-moe-a2.7b", *DENSE_FAMILIES]
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -16,16 +16,22 @@ token.  This script replays the smoke's requests (REQ 0-3: 512, 2048,
 0 1) in other ways, and prints for each way every row's max |err| and
 cosine against the plain path, whether the row passes the smoke's limit,
 and how many routing decisions differ from the plain path's (summed over
-layers):
+layers); with ``--against mesh_ep_plain`` each way is held instead to the
+plain path of the 4-position mesh with expert parallelism:
 
   plain           the plain path itself (the replay's own spread);
   plain_ulp       the plain path with every attention output moved one
                   bf16 ulp toward zero;
   routed          the kernel path (what the smoke compares);
+  mesh            the kernel path on the smoke's 4-position mesh of the
+                  one card (ring attention, split-KV paged decode);
+  mesh_ep         the same with expert parallelism (chip_smoke.py's
+                  sp_families phase);
   planted_no_history  the kernel path with K2's partial left out of the
                   merge: the second chunk attends to its own keys only;
   planted_router_shift  the kernel path with every top-k choice moved to
-                  the next expert.
+                  the next expert;
+  mesh_ep_planted_router_shift  the same on mesh_ep.
 """
 
 from __future__ import annotations
@@ -58,6 +64,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1])
     ap.add_argument("--requests", type=int, nargs="*", default=[3, 2, 1])
+    ap.add_argument("--ways", nargs="*", default=None,
+                    help="a subset of the ways (default: all)")
+    ap.add_argument("--against", choices=["plain", "mesh_ep_plain"],
+                    default="plain",
+                    help="the replay every way is held to: the plain path "
+                         "(default), or the plain path of the mesh with "
+                         "expert parallelism (the same program as mesh_ep, "
+                         "plain kernels)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("moe_logits_floor: needs a CUDA device", file=sys.stderr)
@@ -103,17 +117,27 @@ def main(argv=None) -> int:
         vals, idx = kept["moe"]["top_k_stable"](x, k)
         return vals, (idx + 1) % x.shape[-1]
 
-    # way -> (on the plain path?, patches)
+    # way -> (the context: plain, kernel or a mesh's, patches)
     ways = {"plain": (True, {}), "plain_ulp": (True, ulp_attention()),
-            "routed": (False, {}),
+            "routed": (False, {}), "mesh": ("mesh", {}),
+            "mesh_ep": ("mesh_ep", {}),
             "planted_no_history": (False, {"ops": {
                 "paged_prefill_attention": no_history}}),
             "planted_router_shift": (False, {"moe": {
+                "top_k_stable": router_shift}}),
+            "mesh_ep_planted_router_shift": ("mesh_ep", {"moe": {
                 "top_k_stable": router_shift}})}
     modules = {"ops": ops, "moe": moe}
+    if args.ways:
+        ways = {n: w for n, w in ways.items() if n in args.ways}
     cfg = get_config(ARCH)
     ctx = make_context("cuda")
     plain = ctx.with_(impl="ref")
+    mesh = chip_smoke._sp_context()
+    ctxs = {True: plain, False: ctx, "mesh": mesh,
+            "mesh_ep": mesh.with_(moe_ep=True)}
+    against = (plain if args.against == "plain"
+               else mesh.with_(moe_ep=True, impl="ref"))
     # the serve phase's prompts
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, L).astype(np.int32)
@@ -124,9 +148,10 @@ def main(argv=None) -> int:
             prompt = prompts[req]
             # each request's decode token is the plain path's first
             token = int(torch.argmax(chip_smoke._replay(
-                cfg, params, plain, prompt, 0)[1]))
+                cfg, params, plain, prompt, [])[1]))
             with chip_smoke.moe_routes() as want_routes:
-                want = chip_smoke._replay(cfg, params, plain, prompt, token)
+                want = chip_smoke._replay(cfg, params, against, prompt,
+                                          [token])
             for name, (on_plain, patches) in ways.items():
                 for mod, fns in patches.items():
                     for fn_name, fn in fns.items():
@@ -134,8 +159,7 @@ def main(argv=None) -> int:
                 try:
                     with chip_smoke.moe_routes() as routes:
                         got = chip_smoke._replay(
-                            cfg, params, plain if on_plain else ctx, prompt,
-                            token)
+                            cfg, params, ctxs[on_plain], prompt, [token])
                 finally:
                     for mod, fns in kept.items():
                         for fn_name, fn in fns.items():
@@ -155,6 +179,7 @@ def main(argv=None) -> int:
                                  "keep_differs":
                                      sum(diff[row]["keep_differs"])}
                 print(json.dumps({"seed": seed, "request": req, "way": name,
+                                  "against": args.against,
                                   "tokens": len(prompt),
                                   "logits_vs_plain": rows}), flush=True)
         del params
