@@ -105,12 +105,31 @@ Phases, each printing JSON lines:
                and Qwen1.5-MoE's mesh engine with expert parallelism
                give their unsharded engines' tokens, and Whisper's
                path (two encoder and two decoder layers) gives the plain
-               path's.
+               path's;
+  7. train   — the training path (``training/``): Llama-3-8B at
+               published widths cut to 4 layers (AdamW's state for all
+               32 would not fit the card; the phase prints the cut), bf16,
+               one 4096-token sequence a step, 8 steps of ``Trainer``, K3
+               through ``FlashAttentionFn``; the whole Mamba-2-1.3B, bf16,
+               2048 tokens, 4 steps under remat, K5 through ``SSDScanFn``
+               (twice a layer a step); each on the kernel path and the
+               plain path from one seed.  Launches exactly as predicted,
+               every loss finite, the kernel path's decreasing and each
+               step's within ``TRAIN_BF16_LOSS_RTOL`` of the plain
+               path's; an fp32 step at full width, 2 layers and 1024
+               tokens: loss within 1e-4 and every gradient leaf (each
+               layer) at cosine >= 0.9999 of the plain path's, a zeroed
+               gradient of one layer's K3 (K5) backward failing that
+               gate.  Step ms, tokens/s, peak memory, one step split into
+               forward, backward and AdamW (and the kernels and the plain
+               vector-Jacobian products inside), and K3 at the train shape
+               forward and forward + backward beside the plain version
+               and ``scaled_dot_product_attention``.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-6 (3b, 3c and 3d included) run.
+subset; with no arguments phases 1-7 (3b, 3c and 3d included) run.
 ``--only profile`` adds a torch.profiler breakdown of one full-width
 prefill chunk and one decode tick of each served model and of Whisper
 (kernel time by group and by aten op, on Qwen by MoE stage, and the
@@ -125,6 +144,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -173,7 +193,12 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
          "sp_moe": {"paged_flash_decode", "flash_attention"},
          "sp_dense": {"flash_attention", "flash_decode"},
          "dense": {"flash_attention", "flash_decode"},
-         "whisper": {"flash_attention", "flash_decode"}}
+         "whisper": {"flash_attention", "flash_decode"},
+         # the training path: K3 through FlashAttentionFn (Llama), K5
+         # through SSDScanFn under remat (Mamba-2); the backward is the
+         # plain versions' vector-Jacobian product, no kernel
+         "train_llama": {"flash_attention"},
+         "train_mamba": {"ssd_scan"}}
 # the served attention models whose replay holds each K1-K3 call to its
 # plain version (attn_call_gate)
 ATTN_GATED = ("serve_moe", "serve_chatglm", "serve_nemotron")
@@ -2630,6 +2655,7 @@ def _dense_shard_times(cfg, L: int, ticks: int) -> dict:
         o, lse = flash_attention(q, k, v, qp, kp)
         po, pl = flash_attention_plain(q, k, v, qp, kp)
         tol = KERNEL_TOL["bfloat16"]
+        mask = (kp[None, :] <= qp[:, None])[None]
         out[name] = {
             "queries": n, "keys": n, "visible_pairs": pairs,
             "o_ratio": close_ratio(o, po, tol["atol"], tol["rtol"]),
@@ -2637,6 +2663,9 @@ def _dense_shard_times(cfg, L: int, ticks: int) -> dict:
                            cold=False),
             "plain_ms": event_ms(lambda: flash_attention_plain(
                 q, k, v, qp, kp), cold=False, n=3),
+            "library_ms": event_ms(_sdpa(q, k, v, None, causal=False)
+                                   if pairs == n * n
+                                   else _sdpa(q, k, v, mask), cold=False),
             "bound_ms": bms, "bound_by": by}
     s_loc = (L + ticks) // SP
     ln = torch.tensor([L + 1], dtype=torch.int32, device=dev)
@@ -2660,6 +2689,10 @@ def _dense_shard_times(cfg, L: int, ticks: int) -> dict:
                                 cold=False),
             "plain_ms": event_ms(lambda: flash_decode_plain(
                 q, k, v, ln, kv_offset=off), cold=False, n=3),
+            # the library over the shard's valid keys (none: not timed)
+            "library_ms": event_ms(_sdpa(
+                q[:, None], k[:, :keys], v[:, :keys], None, causal=False),
+                cold=True) if keys else None,
             "bound_ms": bms, "bound_by": by}
     check(all(r["o_ratio"] <= 1.0 for r in out.values()),
           f"sp_families: a K3/K4 call at the mesh shapes disagrees: {out}")
@@ -3014,6 +3047,364 @@ def phase_tokens():
     _tokens_whisper(6)
 
 
+# ------------------------------------------------------------ phase train
+# Llama-3-8B trains at published widths with its depth cut: AdamW's two
+# fp32 moments for 8.03e9 parameters are 64 GB, with the bf16 weights and
+# gradients 96 GB, more than the card's 80 GB
+TRAIN_LLAMA_LAYERS, TRAIN_LLAMA_SEQ, TRAIN_LLAMA_STEPS = 4, 4096, 8
+TRAIN_MAMBA_SEQ, TRAIN_MAMBA_STEPS = 2048, 4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=4)
+# the fp32 gradient check: two layers at full width, seq 1024
+TRAIN_FP32_LAYERS, TRAIN_FP32_SEQ = 2, 1024
+TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_COS = 1e-4, 0.9999
+# a bf16 step's loss on the kernel path against the plain path's,
+# relative: the two trajectories part as training goes (Adam's updates
+# follow the sign of gradients that bf16 rounding moves); measured 1.4e-4
+# at worst over Llama's 8 steps and 3.4e-3 at Mamba-2's 4th step (NVIDIA
+# H100 80GB HBM3, 700.00 W), so the limit is 6x the worst
+TRAIN_BF16_LOSS_RTOL = 2e-2
+
+
+def train_launches(cfg, steps: int, remat: bool) -> int:
+    """K3 (or K5) launches of ``steps`` train steps: one a layer in the
+    forward, and under remat one more in the backward's recompute (the
+    backward itself differentiates the plain version)."""
+    return cfg.n_layers * steps * (2 if remat else 1)
+
+
+def _train_batch(cfg, seq: int, step: int, device) -> dict:
+    """Batch ``step`` of the synthetic LM, one sequence, on ``device``."""
+    import torch
+    from repro_torch.training.data import make_pipeline
+    return {k: torch.from_numpy(v.copy()).to(device)
+            for k, v in make_pipeline(cfg, seq, 1).batch(step).items()}
+
+
+@contextlib.contextmanager
+def _backward_wrapped(fn, wrap):
+    """Inside the block the autograd Function ``fn`` runs ``wrap(its
+    backward)`` as its backward."""
+    saved = fn.__dict__["backward"]
+    fn.backward = staticmethod(wrap(saved.__func__))
+    try:
+        yield
+    finally:
+        fn.backward = saved
+
+
+def _train_path(cfg, ctx, seq: int, steps: int):
+    """``steps`` steps of ``Trainer`` on seeded weights and the synthetic
+    LM's batches of one sequence: every step's loss, gnorm and ms, the
+    tokens/s of the steps after the first, the peak memory and the
+    kernels launched; and the trainer."""
+    import torch
+    from repro_torch.models.params import init_params
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.train_loop import Trainer
+    params = init_params(cfg, seed=0, device=ctx.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, params, ctx=ctx, opt=AdamW(**TRAIN_OPT))
+    del params
+    _reset_counts()
+    hist = tr.fit(make_pipeline(cfg, seq, 1), steps, log_every=1)
+    counts = _read_counts()
+    walls = [0.0] + [r["wall"] for r in hist]
+    step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    out = {"loss": [r["loss"] for r in hist],
+           "gnorm": [r["gnorm"] for r in hist], "step_ms": step_ms,
+           "median_step_ms_after_first": steady,
+           "tokens_per_s": seq / (steady / 1e3),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    return out, tr
+
+
+def _train_split(tr, cfg, seq: int) -> dict:
+    """Two more steps of ``tr`` (their updates dropped), each split on the
+    card's stream by CUDA events into forward, backward and AdamW: one
+    bare, one under torch.profiler, which gives the step's kernel time by
+    group, its busy share, and the device time of the plain
+    vector-Jacobian products that the autograd Functions' backward
+    runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    from repro_torch.kernels.ssd_scan import SSDScanFn
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_loop import loss_fn
+    batch = _train_batch(cfg, seq, 100, tr.ctx.device)
+
+    def step() -> dict:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for _, p in tree_leaves(tr.params):
+            p.grad = None
+        torch.cuda.synchronize()
+        ev[0].record()
+        loss, _ = loss_fn(tr.params, cfg, tr.ctx, batch)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tr.opt.update(tree_map(lambda p: p.grad, tr.params), tr.opt_state,
+                      tr.params)
+        ev[3].record()
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        return {"forward_ms": ms[0], "backward_ms": ms[1],
+                "adamw_ms": ms[2], "step_ms": sum(ms)}
+
+    def ranged(label):
+        def wrap(backward):
+            def run(*a):
+                with record_function(label):
+                    return backward(*a)
+            return run
+        return wrap
+
+    bare = step()
+    with _backward_wrapped(FlashAttentionFn, ranged("train/k3_plain_vjp")), \
+            _backward_wrapped(SSDScanFn, ranged("train/k5_plain_vjp")):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            profiled = step()
+    groups, others = _kernel_groups(prof)
+    vjp = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CPU" and e.key.startswith("train/"):
+            vjp[e.key] = vjp.get(e.key, 0.0) + e.device_time_total / 1e3
+    busy = sum(groups.values())
+    return {"bare": bare, "profiled": profiled, "kernel_ms": groups,
+            "busy_ms": busy, "idle_share": 1.0 - busy / profiled["step_ms"],
+            "idle_share_bare": 1.0 - busy / bare["step_ms"],
+            "plain_vjp_ms": vjp, "top_other_ms": others}
+
+
+def _train_grads(cfg, ctx, seq: int, fault=None):
+    """fp32 loss and gradients of one step (no update) from seeded
+    weights; ``fault`` names an autograd Function whose first backward
+    call (the last layer's) returns zero gradients."""
+    import torch
+    from repro_torch.models.params import init_params
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train_loop import loss_fn, trainable
+    params = trainable(init_params(cfg, seed=1, device=ctx.device))
+    calls = []
+
+    def zero_first(backward):
+        def run(*a):
+            out = backward(*a)
+            calls.append(1)
+            if len(calls) > 1:
+                return out
+            return tuple(None if t is None else torch.zeros_like(t)
+                         for t in out)
+        return run
+
+    with (_backward_wrapped(fault, zero_first) if fault is not None
+          else contextlib.nullcontext()):
+        loss, _ = loss_fn(params, cfg, ctx, _train_batch(cfg, seq, 0,
+                                                         ctx.device))
+        loss.backward()
+    return float(loss.detach()), dict(tree_leaves(
+        tree_map(lambda p: p.grad, params)))
+
+
+def _grad_agreement(got, want) -> dict:
+    """Cosine of each gradient leaf with the plain path's, each layer of a
+    stacked leaf on its own: the worst, and where."""
+    import torch
+    worst, where = 2.0, None
+    for name, w in want.items():
+        g = got[name]
+        parts = (zip(g, w) if name.startswith(("blocks/", "encoder/"))
+                 else ((g, w),))
+        for i, (a, b) in enumerate(parts):
+            a, b = a.flatten().double(), b.flatten().double()
+            den = float(a.norm() * b.norm())
+            cos = float(a @ b) / den if den else float(a.norm() == b.norm())
+            if cos < worst:
+                worst, where = cos, f"{name}[{i}]"
+    return {"worst_cos": worst, "at": where}
+
+
+def _train_fp32(arch: str, ctx, fn) -> dict:
+    """The fp32 gate at full width, ``TRAIN_FP32_LAYERS`` layers and seq
+    ``TRAIN_FP32_SEQ``: the kernel path's first-step loss within
+    ``TRAIN_FP32_LOSS_RTOL`` of the plain path's and every gradient leaf
+    (each layer) at cosine >= ``TRAIN_FP32_COS``; the same path with
+    ``fn``'s backward zeroed for one layer must fail it."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_FP32_LAYERS,
+                              dtype="float32")
+    seq = TRAIN_FP32_SEQ
+    l_p, g_p = _train_grads(cfg, ctx.with_(impl="ref"), seq)
+    _reset_counts()
+    l_k, g_k = _train_grads(cfg, ctx, seq)
+    counts = _read_counts()
+    kernel = "flash_attention" if cfg.ssm is None else "ssd_scan"
+    check(counts[kernel] == train_launches(cfg, 1, ctx.remat),
+          f"train: the fp32 {arch} step launched {counts}")
+    right = _grad_agreement(g_k, g_p)
+    right["loss_rel"] = abs(l_k - l_p) / abs(l_p)
+    del g_k
+    _free()
+    l_f, g_f = _train_grads(cfg, ctx, seq, fault=fn)
+    planted = _grad_agreement(g_f, g_p)
+    planted["loss_rel"] = abs(l_f - l_p) / abs(l_p)
+    del g_f, g_p
+    _free()
+    out = {"model": cfg.name, "layers": cfg.n_layers, "seq": seq,
+           "remat": ctx.remat, "loss": l_k, "plain_loss": l_p,
+           "launches": counts, "right": right,
+           f"planted_{fn.__name__}_zeroed_one_layer": planted}
+    emit(phase="train", check="fp32_gradients", **out)
+    check(right["loss_rel"] <= TRAIN_FP32_LOSS_RTOL
+          and right["worst_cos"] >= TRAIN_FP32_COS,
+          f"train: fp32 {arch} gradients of the kernel path off the plain "
+          f"path's: {right}")
+    check(planted["worst_cos"] < TRAIN_FP32_COS,
+          f"train: the fp32 gate missed {fn.__name__}'s zeroed gradient: "
+          f"{planted}")
+    return out
+
+
+def _k3_train_times(cfg, S: int) -> dict:
+    """K3 at the train shape (one sequence of ``S`` tokens, causal, bf16):
+    forward, and forward + backward through ``FlashAttentionFn`` (the
+    backward is the plain version's vector-Jacobian product), beside the
+    plain version and ``scaled_dot_product_attention``, by CUDA events
+    with the card busy; bounds at 3.35 TB/s and 989 TFLOP/s, the
+    backward counted as twice the forward's products."""
+    import torch
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    dev = torch.device("cuda")
+    H, KVH, D = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim_
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+
+    q, k, v = randn(1, S, H, D), randn(1, S, KVH, D), randn(1, S, KVH, D)
+    go = randn(1, S, H, D)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    pairs = S * (S + 1) // 2
+    fwd_b = ring_step_bound_ms(S, H, KVH, D, pairs)
+    # fwd + bwd: q, k, v, o, dO read and dq, dk, dv written once; three
+    # times the forward's products
+    nbytes = (4 * S * H * D + 4 * S * KVH * D) * 2 + H * S * 4
+    both_b = bound_ms(nbytes, 3 * 4 * H * D * pairs, "bfloat16")
+    sdpa = _sdpa(q, k, v, None, causal=True)
+    o, _ = flash_attention(q, k, v, pos, pos)
+    po, _ = flash_attention_plain(q, k, v, pos, pos)
+    tol = KERNEL_TOL["bfloat16"]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def k_both():
+        out, _ = FlashAttentionFn.apply(*leaves, pos, pos, True, None, None)
+        torch.autograd.grad(out, leaves, go)
+
+    def p_both():
+        out, _ = flash_attention_plain(*leaves, pos, pos)
+        torch.autograd.grad(out, leaves, go)
+
+    def l_both():
+        # GQA without repeating K/V: the library's own grouped call
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in leaves), is_causal=True,
+            enable_gqa=True)
+        torch.autograd.grad(out, leaves, go.transpose(1, 2))
+
+    return {"B": 1, "S": S, "H": H, "KVH": KVH, "D": D,
+            "o_ratio": close_ratio(o, po, tol["atol"], tol["rtol"]),
+            "forward": {"ms": event_ms(lambda: flash_attention(
+                q, k, v, pos, pos), cold=False),
+                "plain_ms": event_ms(lambda: flash_attention_plain(
+                    q, k, v, pos, pos), cold=False, n=3),
+                "library_ms": event_ms(sdpa, cold=False),
+                "bound_ms": fwd_b[0], "bound_by": fwd_b[1]},
+            "forward_backward": {"ms": event_ms(k_both, cold=False, n=3),
+                                 "plain_ms": event_ms(p_both, cold=False,
+                                                      n=3),
+                                 "library_ms": event_ms(l_both, cold=False,
+                                                        n=5),
+                                 "bound_ms": both_b[0],
+                                 "bound_by": both_b[1]}}
+
+
+def _train_model(arch: str, cfg, ctx, seq: int, steps: int, path: str,
+                 fn) -> dict:
+    """The kernel path and the plain path of ``steps`` bf16 steps from the
+    same seed; the gates of ``phase_train``.  Returns the kernel path's
+    launch counts."""
+    want = train_launches(cfg, steps, ctx.remat)
+    runs, split = {}, None
+    for impl in (None, "ref"):
+        run, tr = _train_path(cfg, ctx.with_(impl=impl), seq, steps)
+        if impl is None:
+            split = _train_split(tr, cfg, seq)
+        runs[impl or "cuda"] = run
+        del tr
+        _free()
+    k, p = runs["cuda"], runs["ref"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
+    kernel = "flash_attention" if cfg.ssm is None else "ssd_scan"
+    emit(phase="train", model=cfg.name, layers=cfg.n_layers, seq=seq,
+         batch=1, steps=steps, remat=ctx.remat, optimizer=TRAIN_OPT,
+         kernel_path=k, plain_path=p, loss_rel_vs_plain=rel,
+         launches_predicted={kernel: want}, step_split=split)
+    _check_launches(k["launches"], path)
+    check(k["launches"][kernel] == want,
+          f"train {arch}: {kernel} launched {k['launches'][kernel]}, "
+          f"predicted {want}")
+    check(not any(p["launches"].values()),
+          f"train {arch}: the plain path launched kernels")
+    check(all(map(math.isfinite, k["loss"] + p["loss"])),
+          f"train {arch}: a loss is not finite")
+    check(k["loss"][-1] < k["loss"][0],
+          f"train {arch}: the loss did not decrease: {k['loss']}")
+    check(max(rel) <= TRAIN_BF16_LOSS_RTOL,
+          f"train {arch}: a step's loss is {max(rel)} off the plain path's")
+    _train_fp32(arch, ctx, fn)
+    return k["launches"]
+
+
+def phase_train() -> dict:
+    """The training path on the card, bf16 at published widths:
+    Llama-3-8B cut to ``TRAIN_LLAMA_LAYERS`` layers (K3 through
+    ``FlashAttentionFn``) and the whole Mamba-2-1.3B under remat (K5
+    through ``SSDScanFn``, twice a layer a step), each on the kernel path
+    and the plain path from one seed; then K3's times at the train
+    shape.  Returns the kernel paths' launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    from repro_torch.kernels.ssd_scan import SSDScanFn
+    from repro_torch.models.sharding import make_context
+    ctx = make_context("cuda")
+    full = get_config("llama3-8b")
+    llama = dataclasses.replace(full, n_layers=TRAIN_LLAMA_LAYERS)
+    emit(phase="train", model=full.name, cut={
+        "n_layers": [full.n_layers, llama.n_layers],
+        "why": "AdamW's two fp32 moments for 8.03e9 parameters are 64 GB; "
+               "with bf16 weights and gradients 96 GB, above the card's "
+               "80 GB"})
+    out = {"train_llama": _train_model(
+        "llama3-8b", llama, ctx, TRAIN_LLAMA_SEQ, TRAIN_LLAMA_STEPS,
+        "train_llama", FlashAttentionFn)}
+    out["train_mamba"] = _train_model(
+        "mamba2-1.3b", get_config("mamba2-1.3b"), ctx.with_(remat=True),
+        TRAIN_MAMBA_SEQ, TRAIN_MAMBA_STEPS, "train_mamba", SSDScanFn)
+    times = _k3_train_times(full, TRAIN_LLAMA_SEQ)
+    emit(phase="train", k3_train_shape=times)
+    check(times["o_ratio"] <= 1.0,
+          f"train: K3 at the train shape disagrees: {times['o_ratio']}")
+    _free()
+    return out
+
+
 # ---------------------------------------------------------- profile (opt-in)
 # K2/K3's kernels in flash_attention.cu: the tensor-core kernel (bf16) and
 # the CUDA-core kernel (fp32), templated on <head_dim, paged>
@@ -3279,11 +3670,11 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="*",
                     choices=["device", "kernels", "serve", "serve_sp",
                              "serve_elastic", "sp_families", "dense",
-                             "whisper", "tokens", "profile"])
+                             "whisper", "tokens", "train", "profile"])
     args = ap.parse_args(argv)
     phases = args.only or ["device", "kernels", "serve", "serve_sp",
                            "serve_elastic", "sp_families", "dense",
-                           "whisper", "tokens"]
+                           "whisper", "tokens", "train"]
 
     import torch
     if not torch.cuda.is_available():
@@ -3309,6 +3700,8 @@ def main(argv=None) -> int:
         by_path["whisper"] = phase_whisper()
     if "tokens" in phases:
         phase_tokens()
+    if "train" in phases:
+        by_path.update(phase_train())
     if "profile" in phases:
         phase_profile()
     table = []

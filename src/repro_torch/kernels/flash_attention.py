@@ -9,12 +9,21 @@ plain PyTorch versions.
   valid while below ``hist_len``); returns the partial ``(out, lse)`` that
   ``ref.merge_partials`` combines with the chunk's own attention.
   Replaces the Pallas ``paged_flash_prefill``.
+* ``FlashAttentionFn`` — K3 under autograd: the forward is
+  ``flash_attention``, the backward the vector-Jacobian product of
+  ``flash_attention_plain`` (for ``out`` and ``lse``) recomputed from the
+  saved inputs.  The reference has no backward kernel (no Pallas kernel
+  carries a ``custom_vjp``): ``jax.grad`` differentiates its plain
+  attention, and this differentiates the same function.
 
 A wrapper given CUDA tensors launches its kernel (and counts the launch in
 its ``launches`` attribute); given CPU tensors it runs the plain version
 beside it.  The plain versions compute what the kernels compute, including
 ``out = 0`` for a query row with no valid key (the reference oracle in
 ``ref.py`` leaves a mean of V there, which merging weights by zero).
+No kernel has a backward of its own: a kernel called on CUDA tensors
+that require a gradient, with grad mode on, raises rather than cut the
+graph (``ops`` routes K3 and K5 through their autograd Functions).
 """
 
 from __future__ import annotations
@@ -47,7 +56,24 @@ def _pos2d(pos: torch.Tensor, B: int, S: int) -> torch.Tensor:
     return pos.expand(B, S).to(torch.int32).contiguous()
 
 
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd must see through a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where a kernel would cut the autograd graph: its output
+    written through a raw pointer has no ``grad_fn``."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; differentiate through "
+            "its autograd Function (kernels/ops.py) or run under "
+            "torch.no_grad()")
+
+
 def _check(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    refuse_grad(name, q, *others)
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not in {list(_DTYPES)}")
     if q.shape[-1] not in _HEAD_DIMS:
@@ -120,6 +146,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K3 with gradients for q, k and v: ``apply(q, k, v, q_pos, kv_pos,
+    causal, window, softmax_scale)`` gives ``(out, lse)``.  The forward
+    is ``flash_attention`` (the kernel on CUDA tensors, the plain version
+    on CPU ones); the backward recomputes ``flash_attention_plain`` from
+    the saved inputs and returns its vector-Jacobian product for the
+    outputs that received a gradient (``lse`` does where partials are
+    merged by it, as in ring attention)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softmax_scale):
+        out, lse = flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window,
+                                   softmax_scale=softmax_scale)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        ctx.kw = dict(causal=causal, window=window,
+                      softmax_scale=softmax_scale)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, q_pos, kv_pos = ctx.saved_tensors
+        return (*_plain_vjp(
+            lambda q, k, v: flash_attention_plain(q, k, v, q_pos, kv_pos,
+                                                  **ctx.kw),
+            (q, k, v), ctx.needs_input_grad[:3], (g_out, g_lse)),
+            None, None, None, None, None)
+
+
+def _plain_vjp(plain, inputs, needs, grads_out):
+    """The gradients of ``plain(*inputs)`` (a tuple of outputs) for the
+    inputs whose ``needs`` is set, the cotangents ``grads_out`` (None:
+    that output gets none); None for the others."""
+    if not any(needs) or all(g is None for g in grads_out):
+        return [None] * len(needs)
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(inputs, needs)]
+        pairs = [(o, g) for o, g in zip(plain(*ins), grads_out)
+                 if g is not None]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], [t for t, n in zip(ins, needs) if n],
+            [g for _, g in pairs], allow_unused=True))
+    return [next(got) if n else None for n in needs]
 
 
 # ------------------------------------------------------------------- K2

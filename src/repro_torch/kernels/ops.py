@@ -14,12 +14,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention, needs_grad,
                                                  paged_flash_prefill)
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               fused_append_attend,
                                               paged_flash_decode)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan, ssd_scan_plain
 
 IMPLS = (None, "ref")
 # position of a dead key: past every query, so the causal mask retires it
@@ -40,8 +41,12 @@ def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
         return _ref.attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
                                   window=window, softmax_scale=softmax_scale,
                                   with_lse=with_lse)
-    out, lse = flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                               window=window, softmax_scale=softmax_scale)
+    if needs_grad(q, k, v):
+        out, lse = FlashAttentionFn.apply(q, k, v, q_pos, kv_pos, causal,
+                                          window, softmax_scale)
+    else:
+        out, lse = flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, softmax_scale=softmax_scale)
     return (out, lse) if with_lse else out
 
 
@@ -184,6 +189,8 @@ def ssd(x, dt, A, Bm, Cm, *, h0=None, chunk: int = 128,
     (the recurrence's identity), as the reference does."""
     if not use_kernel(x, impl):
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+    if needs_grad(x, dt, A, Bm, Cm, h0):
+        return SSDScanFn.apply(x, dt, A, Bm, Cm, h0, chunk)
     return ssd_scan(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
 
 

@@ -14,6 +14,11 @@ PyTorch version.
   runs on the CUDA cores.
 * ``ssd_scan_plain`` — the same function in plain PyTorch: the tail padded
   with dt = 0 to a whole chunk, then ``ref.ssd_chunked_ref``.
+* ``SSDScanFn`` — K5 under autograd: the forward is ``ssd_scan``, the
+  backward the vector-Jacobian product of ``ssd_scan_plain`` (for x, dt,
+  A, Bm, Cm and h0) recomputed from the saved inputs, the function
+  ``jax.grad`` differentiates in the reference (no Pallas kernel there
+  has a backward).
 
 Given CUDA tensors the wrapper launches the kernel (and counts the launch
 in ``ssd_scan.launches``); given CPU tensors it runs the plain version.
@@ -33,7 +38,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.flash_attention import _DTYPES
+from repro_torch.kernels.flash_attention import (_DTYPES, _plain_vjp,
+                                                 refuse_grad)
 
 # (P, N) pairs the kernels are instantiated for, both dtypes
 # (csrc/ssd_scan.cu); bf16 pads P and N to 64-column tiles
@@ -80,6 +86,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     alignment rule of the module docstring, or the launch raises."""
     if not x.is_cuda:
         return ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+    refuse_grad("ssd_scan", x, dt, A, Bm, Cm, h0)
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if (Bm.shape != (B, S, G, N) or Cm.shape != Bm.shape or H % G
@@ -133,3 +140,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """K5 with gradients for x, dt, A, Bm, Cm and h0: ``apply(x, dt, A,
+    Bm, Cm, h0, chunk)`` gives ``(y, h_final)``.  The forward is
+    ``ssd_scan`` (the kernel on CUDA tensors, which masks a ragged last
+    chunk; the plain scan on CPU ones); the backward recomputes
+    ``ssd_scan_plain`` (which pads it with dt = 0) from the saved inputs
+    and returns its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
+        y, h = ssd_scan(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        return (*_plain_vjp(
+            lambda x, dt, A, Bm, Cm, h0: ssd_scan_plain(
+                x, dt, A, Bm, Cm, h0=h0, chunk=ctx.chunk),
+            ctx.saved_tensors, ctx.needs_input_grad[:6], (g_y, g_h)), None)

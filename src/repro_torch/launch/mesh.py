@@ -10,7 +10,8 @@ runs a 4-position mesh as four logical positions on ``cuda:0``).
   device per position: the counterpart of ``jax.sharding.Mesh`` and of the
   reference's ``compat.make_mesh`` (``make_mesh`` here).
 * ``make_context(mesh, mode)`` — the axis roles of each execution mode
-  (reference ``launch/mesh.py``): ``"prefill"`` (ring attention over
+  (reference ``launch/mesh.py``): ``"train"`` (the batch on ``dp_axis``
+  = "data", each block rematerialised), ``"prefill"`` (ring attention over
   ``sp_axis``), ``"decode"`` (split-KV over ``kv_split_axis`` = "model",
   the batch on ``dp_axis`` = "data") and
   ``"serve_paged"`` (both on the "data" axis, so a page's stripe position
@@ -113,7 +114,12 @@ def make_context(mesh: Mesh, mode: str, *, impl: Optional[str] = None,
                  window: Optional[int] = None) -> ExecContext:
     """Mesh-axis roles per execution mode (reference launch/mesh.py).
 
-    ``"train"`` is not ported (training is a later part of the port).
+    ``"train"`` puts the batch on ``dp_axis="data"`` and sets ``remat``
+    (each block's activations recomputed in the backward pass).  One
+    process never splits the batch; only expert parallelism
+    (``moe_ep``) reads ``dp_axis``, so without it a train step on the
+    mesh computes the single-device loss and gradients on position 0's
+    device.
     ``serve_paged`` is the paged serving engine's context: one context
     drives chunk prefill (ring attention over ``sp_axis``) and paged
     decode (split-KV over ``kv_split_axis``), and the engine's pools
@@ -123,13 +129,15 @@ def make_context(mesh: Mesh, mode: str, *, impl: Optional[str] = None,
     axis with more than one position (heads shard over it), else None."""
     tp = "model" if mesh.shape.get("model", 1) > 1 else None
     common = dict(mesh=mesh, tp_axis=tp, impl=impl, window=window)
+    if mode == "train":
+        return ExecContext(dp_axis="data", remat=True, **common)
     if mode == "prefill":
         return ExecContext(sp_axis="data", **common)
     if mode == "decode":
         return ExecContext(dp_axis="data", kv_split_axis="model", **common)
     if mode == "serve_paged":
         return ExecContext(sp_axis="data", kv_split_axis="data", **common)
-    raise ValueError(f"mode {mode!r}: the port's mesh contexts are "
+    raise ValueError(f"mode {mode!r}: the mesh contexts are 'train', "
                      "'prefill', 'decode' and 'serve_paged'")
 
 

@@ -17,8 +17,10 @@ islands activations live whole on ``device``, position 0's device of the
 mesh, as a replicated GSPMD array would.
 
 Besides: the kernel choice (``impl``), the runtime window override, the
-MoE dispatch strategy and the two sliding-window decode branches
-(``window_slice``, ``ring_cache``).
+MoE dispatch strategy, the two sliding-window decode branches
+(``window_slice``, ``ring_cache``) and ``remat`` (train mode recomputes
+each block's activations in the backward pass, reference
+``sharding.py:28``).
 """
 
 from __future__ import annotations
@@ -84,6 +86,9 @@ class ExecContext:
     # sliding-window dense decode over a ring buffer of the last S_max
     # (<= window) tokens
     ring_cache: bool = False
+    # train mode: checkpoint each block of the stack (its activations are
+    # recomputed in the backward pass)
+    remat: bool = False
 
     def __post_init__(self):
         first = None if self.mesh is None else self.mesh.devices[0]

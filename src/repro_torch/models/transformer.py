@@ -11,7 +11,9 @@ pool in place.  A sharded pool leaf is a list of per-shard pools (one per
 mesh position; a head-sharded shard a list of its head slices), sliced
 shard by shard.
 
-Modes: "train" (logits for every position), "prefill" (logits at the last
+Modes: "train" (logits for every position; under ``ctx.remat`` each block
+runs under ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of its scan body, so its activations are recomputed in the backward), "prefill" (logits at the last
 position + the chunk's caches), "decode" (one token + updated caches).
 Attention and Mamba-2 mixers with dense or MoE FFNs are ported (the MoE
 layers' load-balance losses are summed over the stack, as the reference's
@@ -28,6 +30,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (attention_block, cross_attention,
                                           kv_proj)
@@ -124,11 +127,8 @@ def _stack_forward(x, blocks_p, cfg: ModelConfig, ctx: ExecContext,
     """The stack of ``pattern`` blocks (default ``cfg.pattern``), as many
     as ``blocks_p`` stacks (the encoder's differ from the decoder's)."""
     pattern = cfg.pattern if pattern is None else pattern
-    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_block = []
-    for b in range(_n_stacked(blocks_p)):
-        bp, bc, bh = _slice(blocks_p, b), _slice(caches, b), \
-            _slice(history, b)
+
+    def block(x, aux_tot, bp, bc, bh):
         new = {}
         for i, spec in enumerate(pattern):
             key = str(i)
@@ -139,6 +139,16 @@ def _stack_forward(x, blocks_p, cfg: ModelConfig, ctx: ExecContext,
                 encoder_out=encoder_out)
             if aux is not None:
                 aux_tot = aux_tot + aux
+        return x, aux_tot, new
+
+    remat = ctx.remat and mode == "train"
+    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_block = []
+    for b in range(_n_stacked(blocks_p)):
+        args = (x, aux_tot, _slice(blocks_p, b), _slice(caches, b),
+                _slice(history, b))
+        x, aux_tot, new = (checkpoint(block, *args, use_reentrant=False)
+                           if remat else block(*args))
         per_block.append(new)
     return x, aux_tot, _restack(per_block, caches, mode)
 

@@ -1165,3 +1165,162 @@ def test_sp_family_islands_on_card(dtype):
                            chunk=chunk, h0=h0, impl="ref")
     close(y, y_r)
     torch.testing.assert_close(h, h_r, atol=1e-3, rtol=1e-3)
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("G,mode", [(1, "causal"), (4, "window"),
+                                    (8, "noncausal"), (4, "causal")])
+def test_flash_attention_fn_grads_on_card(G, mode, D, dtype):
+    """``ops.attention`` on CUDA tensors that require a gradient runs K3
+    once through ``FlashAttentionFn``; its out is K3's (within the
+    kernel check) and its gradients for q, k and v (through out and lse)
+    are autograd's through the plain version on the same inputs (the
+    backward is that vector-Jacobian product)."""
+    dev = _card()
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator().manual_seed(G * D)
+    B, Sq, Sk, KVH = 2, 200, 333, 2
+    causal, window = mode != "noncausal", 64 if mode == "window" else None
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=g).to(dev, dtype) \
+            .requires_grad_()
+
+    q, k, v = leaf(B, Sq, G * KVH, D), leaf(B, Sk, KVH, D), \
+        leaf(B, Sk, KVH, D)
+    qp = torch.arange(Sk - Sq, Sk, dtype=torch.int32, device=dev)
+    kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+    go = torch.randn(B, Sq, G * KVH, D, generator=g).to(dev, dtype)
+    gl = torch.randn(B, G * KVH, Sq, generator=g).to(dev)
+    before = flash_attention.launches
+    out, lse = ops.attention(q, k, v, qp, kp, causal=causal, window=window,
+                             with_lse=True)
+    assert flash_attention.launches == before + 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad((out, lse), (q, k, v), (go, gl))
+    want_o, want_l = flash_attention_plain(q, k, v, qp, kp, causal=causal,
+                                           window=window)
+    want = torch.autograd.grad((want_o, want_l), (q, k, v), (go, gl))
+    assert flash_attention.launches == before + 1
+    atol, rtol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-3, 1e-2)
+    torch.testing.assert_close(out.float(), want_o.float(), atol=atol,
+                               rtol=rtol)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,with_h0", [(512, True), (333, True),
+                                       (333, False)])
+def test_ssd_scan_fn_grads_on_card(S, with_h0, dtype):
+    """``ops.ssd`` on CUDA tensors that require a gradient runs K5 once
+    through ``SSDScanFn`` (x, B and C slices of one fused projection, a
+    ragged last chunk at 333); its gradients for x, dt, A, B, C and h0
+    are autograd's through the plain scan on the same inputs."""
+    dev = _card()
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    g = torch.Generator().manual_seed(S)
+    B, H, P, G, N, chunk = 2, 8, 64, 1, 128, 128
+    xbc = torch.randn(B, S, H * P + 2 * G * N, generator=g).to(
+        dev, dtype).requires_grad_()
+    dt = torch.exp(torch.empty(B, S, H).uniform_(-6.9, -2.3, generator=g)
+                   ).to(dev).requires_grad_()
+    A = (-torch.empty(H).uniform_(1.0, 16.0, generator=g)).to(dev) \
+        .requires_grad_()
+    h0 = ((0.3 * torch.randn(B, H, P, N, generator=g)).to(dev)
+          .requires_grad_() if with_h0 else None)
+    gy = torch.randn(B, S, H, P, generator=g).to(dev, dtype)
+    gh = torch.randn(B, H, P, N, generator=g).to(dev)
+    leaves = (xbc, dt, A) + ((h0,) if with_h0 else ())
+
+    def run(fn):
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+        Cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+        y, h = fn(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
+        return y, torch.autograd.grad((y, h), leaves, (gy, gh))
+
+    before = ssd_scan.launches
+    y, got = run(ops.ssd)
+    assert ssd_scan.launches == before + 1
+    py, want = run(ssd_scan_plain)
+    assert ssd_scan.launches == before + 1
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-3, 1e-2)
+    torch.testing.assert_close(y.float(), py.float(), atol=atol, rtol=rtol)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_graph_they_would_cut():
+    """A kernel wrapper called directly on CUDA tensors that require a
+    gradient, with grad mode on, raises; under no_grad it runs."""
+    dev = _card()
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    q = torch.randn(1, 64, 4, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 64, 4, 64, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, k, pos, pos)
+    with torch.no_grad():
+        flash_attention(q, k, k, pos, pos)
+    x = torch.randn(1, 64, 2, 16, device=dev)
+    bc = torch.randn(1, 64, 1, 16, device=dev)
+    dt = torch.rand(1, 64, 2, device=dev)
+    A = -torch.ones(2, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, dt, A, bc, bc, chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-1.3b"])
+def test_train_step_on_card(arch):
+    """One step of the reduced config (fp32) on the card: the kernel path
+    (K3 or K5 through its Function, each block under remat) gives the
+    plain path's loss and gradients; a leaf the loss does not reach makes
+    the step raise."""
+    dev = _card()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import make_context
+    from repro_torch.training.data import make_pipeline
+    from repro_torch.training.optimizer import AdamW, tree_leaves, tree_map
+    from repro_torch.training.train_loop import (loss_fn, make_train_step,
+                                                 trainable)
+    cfg = get_config(arch).reduced()
+    ctx = make_context("cuda").with_(remat=True)
+    batch = {k: torch.from_numpy(v.copy()).to(dev) for k, v in
+             make_pipeline(cfg, 96, 2).batch(0).items()}
+    params = init_params(cfg, seed=0, device=dev)
+    kernel = ssd_scan if cfg.ssm is not None else flash_attention
+    grads = {}
+    for impl in (None, "ref"):
+        before = kernel.launches
+        tp = trainable(params)
+        loss, _ = loss_fn(tp, cfg, ctx.with_(impl=impl), batch)
+        loss.backward()
+        # the forward and the remat recompute of each layer
+        assert kernel.launches - before == (2 * cfg.n_layers
+                                            if impl is None else 0)
+        grads[impl] = (float(loss.detach()),
+                       dict(tree_leaves(tree_map(lambda p: p.grad, tp))))
+    (l_k, g_k), (l_p, g_p) = grads[None], grads["ref"]
+    assert abs(l_k - l_p) <= 1e-5 * abs(l_p)
+    for name, g in g_p.items():
+        err = float((g_k[name] - g).abs().max())
+        assert err <= 1e-3 * float(g.abs().max()) + 1e-8, (name, err)
+    params["unused"] = torch.zeros(3, device=dev)
+    step = make_train_step(cfg, ctx, AdamW())
+    with pytest.raises(RuntimeError, match="unused"):
+        step(trainable(params), AdamW().init(params), batch)

@@ -21,8 +21,8 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # the Mamba-2, MoE, dense-family, Whisper, mesh and SP-family slices'
-    # modules are among them
+    # the Mamba-2, MoE, dense-family, Whisper, mesh, SP-family and
+    # training slices' modules are among them
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
              for p in files[:-1]}
     assert {"compat.py", "configs/mamba2_1_3b.py", "models/ssm.py",
@@ -33,7 +33,9 @@ def test_port_imports_neither_jax_nor_reference():
             "configs/qwen2_vl_72b.py", "configs/mixtral_8x22b.py",
             "configs/whisper_medium.py", "launch/mesh.py",
             "core/ring_attention.py", "core/zigzag.py",
-            "configs/jamba_1_5_large_398b.py"} <= names
+            "configs/jamba_1_5_large_398b.py", "training/data.py",
+            "training/optimizer.py", "training/train_loop.py",
+            "training/checkpoint.py", "launch/train.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
            for p in files for line, name in _imports(p)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -41,8 +43,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_mesh_modules_import_without_jax():
-    """The mesh slice's modules import in a process where jax cannot be
-    imported at all."""
+    """The mesh and training slices' modules import in a process where
+    jax cannot be imported at all."""
     import subprocess
     import sys
     code = ("import sys; sys.modules['jax'] = None; "
@@ -50,6 +52,9 @@ def test_mesh_modules_import_without_jax():
             "import repro_torch.launch.mesh, repro_torch.core.ring_attention,"
             " repro_torch.models.attention, repro_torch.serving.engine,"
             " repro_torch.core.zigzag, repro_torch.models.moe,"
-            " repro_torch.models.ssm")
+            " repro_torch.models.ssm, repro_torch.training.data,"
+            " repro_torch.training.optimizer,"
+            " repro_torch.training.train_loop,"
+            " repro_torch.training.checkpoint, repro_torch.launch.train")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})

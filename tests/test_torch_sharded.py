@@ -53,7 +53,8 @@ def _mesh(n=4, axis="x"):
 # ------------------------------------------------------------------- mesh
 def test_mesh_positions_contexts_and_collectives():
     """Axis positions are row-major; the serve_paged context puts both
-    roles on "data"; ring_shift is ppermute j -> j + 1; split/unsplit
+    roles on "data", the train context the batch (and remat); an unknown
+    mode raises; ring_shift is ppermute j -> j + 1; split/unsplit
     round-trip."""
     from repro_torch.launch.mesh import all_gather, ring_shift, split, unsplit
     m = Mesh(("data", "model"), (2, 3), ["cpu"] * 6)
@@ -68,8 +69,11 @@ def test_mesh_positions_contexts_and_collectives():
     assert ctx.pool_head_axis(8) is None and ctx.device == torch.device("cpu")
     assert ctx.with_(active_pool_shards=2).active_shards("decode") == 2
     assert make_context(ctx.mesh, "prefill").pool_shards("decode") == 1
+    train = make_context(ctx.mesh, "train")
+    assert (train.dp_axis, train.sp_axis, train.remat) == ("data", None,
+                                                           True)
     with pytest.raises(ValueError):
-        make_context(ctx.mesh, "train")
+        make_context(ctx.mesh, "pretrain")
     with pytest.raises(ValueError):
         ExecContext(mesh=ctx.mesh, sp_axis="sp")
     devs = ctx.mesh.positions("data")
