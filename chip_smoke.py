@@ -28,7 +28,9 @@ Phases, each printing JSON lines:
                device times plus event-clock TTFT/TBT are printed; on Qwen
                also the share of (token, choice) pairs that capacity
                dropped, and the routing decisions that differ between the
-               replays;
+               replays; and each engine's host-clock share spent in
+               release demotions (published pages gathered to the host
+               prefix cache);
   3b. serve_sp — Llama-3-8B at full width, bf16, served by the same
                engine on a 4-position mesh whose positions all sit on the
                one card (``launch.mesh``): both page pools striped 4 ways,
@@ -83,6 +85,27 @@ Phases, each printing JSON lines:
                version, logits held to the plain path's); device ms per
                chunk and tick beside the unsharded runs', and per-call
                K3/K4/K5 times at the mesh shapes beside their bounds;
+  3e. serve_tiers — (runs after 3c) the engine's KV memory tiers at
+               Llama-3-8B's widths, bf16, pages of 64, through the
+               ServingEngine with the serve ClusterSpec (16 prefill, 2
+               decode instances): (a) a swap victim placed on the other
+               instance, (b) borrowed headroom instead of a watermark
+               preemption, (c) a 95-page prefix promoted from the other
+               instance's pool, (d) a host prefix-cache hit after
+               eviction, (e) a copy-on-write split of a shared partial
+               page, (f) prefill backpressure on an 80-page pool; then (a)
+               and (c) on the 4-position mesh (g).  Each mechanism must
+               fire; every page move (swap-out, demotion, swap-in, host
+               and peer promotion, CoW split, admission) is held bit for
+               bit, destination against source pages, NaN slots
+               included; K1-K3 launch exactly as each trace predicts;
+               fp32 runs (two layers) give identical tokens calm,
+               pressured and plain, and on the mesh; bf16 streams part
+               from their calm runs only at ties; fabric counters,
+               attribution, spans and the Chrome export are audited and
+               every pool drains.  Each kind of page move is timed
+               beside plain pinned and pageable copies of its bytes, the
+               card-to-card bound and the event clock's model;
   4. dense   — Llama-3-8B at full width through CDSP chunked prefill over
                a dense history (K3), the hand-off to dense decode caches,
                and 16 dense decode ticks (K4); the first tick is held to
@@ -129,7 +152,7 @@ Phases, each printing JSON lines:
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-7 (3b, 3c and 3d included) run.
+subset; with no arguments phases 1-7 (3b-3e included) run.
 ``--only profile`` adds a torch.profiler breakdown of one full-width
 prefill chunk and one decode tick of each served model and of Whisper
 (kernel time by group and by aten op, on Qwen by MoE stage, and the
@@ -192,6 +215,13 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
          "sp_mamba": {"ssd_scan"},
          "sp_moe": {"paged_flash_decode", "flash_attention"},
          "sp_dense": {"flash_attention", "flash_decode"},
+         # the memory tiers (swap, host prefix cache, the fabric, CoW,
+         # backpressure): chunks and ticks as the serve phase's, page moves
+         # are copies; the fabric on the mesh rings (K3) and splits ticks
+         # (K1 a shard)
+         "serve_tiers": {"paged_flash_decode", "paged_flash_prefill",
+                         "flash_attention"},
+         "sp_fabric": {"paged_flash_decode", "flash_attention"},
          "dense": {"flash_attention", "flash_decode"},
          "whisper": {"flash_attention", "flash_decode"},
          # the training path: K3 through FlashAttentionFn (Llama), K5
@@ -1013,7 +1043,7 @@ def phase_kernels(full_shapes: bool = True):
 
 
 # ---------------------------------------------------------------- phase 3
-def _two_chunk_policy():
+def _two_chunk_policy(parallel: bool = False):
     from repro_torch.core.chunk_planner import Allocation, Chunk
     from repro_torch.core.latency_model import table1_model
     from repro_torch.launch.serve import SPEC
@@ -1023,17 +1053,21 @@ def _two_chunk_policy():
         """Every prompt of two or more tokens runs as two chunks, the
         second over the first's paged history at SP 2.  The tetris plan
         keeps each smoke prompt to one chunk (the cluster is idle), which
-        would leave the history kernel unexercised."""
-        name = "two_chunk"
+        would leave the history kernel unexercised.  ``parallel`` gives
+        request ``rid`` its own instance pair (the reference tests'
+        ParallelTwoChunkPolicy), so requests prefill concurrently."""
+        name = "parallel_two_chunk" if parallel else "two_chunk"
 
         def plan(self, req, pool, now):
             L = req.prompt_len
+            lo = (2 * req.rid) % (self.spec.n_prefill - 1) if parallel \
+                else 0
             l0 = L // 2
-            t_q = pool[0]
+            t_q = pool[lo]
             t0 = t_q + self.model.latency(1, 0, l0)
-            t1 = max(t0, pool[1]) + self.model.latency(2, l0, L - l0)
-            return Allocation([Chunk(l0, (0,), t_q, t0),
-                               Chunk(L - l0, (0, 1), t0, t1)])
+            t1 = max(t0, pool[lo + 1]) + self.model.latency(2, l0, L - l0)
+            return Allocation([Chunk(l0, (lo,), t_q, t0),
+                               Chunk(L - l0, (lo, lo + 1), t0, t1)])
 
     return TwoChunkPolicy(table1_model(), SPEC)
 
@@ -1073,6 +1107,33 @@ def _serve(cfg, params, prompts, ctx, output_len, **kw):
     from repro_torch.launch.serve import serve
     return serve(cfg, params, prompts, ctx=ctx, policy=_two_chunk_policy(),
                  output_len=output_len, rate=2.0, max_batch=4, **kw)
+
+
+@contextlib.contextmanager
+def demote_clock():
+    """Host-clock seconds the engines built inside the block spend in
+    release demotions (``ServingEngine._demote_blocks``: the gather of a
+    finished request's published pages to the host prefix cache), the
+    card synchronised around each: yields {"calls", "pages", "s"}."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+    fn = ServingEngine._demote_blocks
+    out = {"calls": 0, "pages": 0, "s": 0.0}
+
+    def timed(self, did, dying):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(self, did, dying)
+        torch.cuda.synchronize()
+        out["calls"] += 1
+        out["pages"] += len(dying)
+        out["s"] += time.perf_counter() - t0
+
+    ServingEngine._demote_blocks = timed
+    try:
+        yield out
+    finally:
+        ServingEngine._demote_blocks = fn
 
 
 def _hist(eng, name):
@@ -1453,7 +1514,7 @@ def _serve_path(arch: str, path: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    with moe_routes() as routes:
+    with moe_routes() as routes, demote_clock() as demote:
         eng = _serve(cfg, params, prompts, ctx, out_len, max_seq=6208,
                      prefill_pool_blocks=256, host_pool_blocks=128,
                      profile_ops=True)
@@ -1462,7 +1523,8 @@ def _serve_path(arch: str, path: str) -> dict:
     counts = _read_counts()
     emit(phase="serve", model=cfg.name, launches=counts,
          wall_s=round(wall, 2),
-         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
+         peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
+         release_demotions={**demote, "share_of_wall": demote["s"] / wall})
     _check_launches(counts, path)
     plans = {rid: r.chunk_plan for rid, r in eng.reqs.items()}
     check(all(len(p) == 2 for p in plans.values()),
@@ -1656,7 +1718,8 @@ def _sm_clock() -> str:
 TIE_TOL = 2 ** -5
 
 
-def _stream_ties(cfg, params, ctxs: dict, prompts, want: dict, got: dict):
+def _stream_ties(cfg, params, ctxs: dict, prompts, want: dict, got: dict,
+                 replays=None):
     """Teacher-force each request's whole stream in ``want`` on every path
     (``ctxs``: name -> context) and hold every step: each path's argmax
     must be ``want``'s token, or the step a tie, every path scoring the two
@@ -1668,16 +1731,25 @@ def _stream_ties(cfg, params, ctxs: dict, prompts, want: dict, got: dict):
     steps checked, each engine's first parting, each step and token other
     than ``want``'s (each path's score gap, ``tie``, the engines whose
     token it was), and the largest row difference between each two
-    paths."""
+    paths.  ``replays``, where given, keeps each replay by prompt and
+    stream for the next request or call."""
     import itertools
+    import numpy as np
     import torch
     out = {}
     for rid, a in want.items():
         part = {e: next((i for i, (x, y) in enumerate(zip(a, g[rid]))
                          if x != y), None) for e, g in got.items()}
-        rows = {n: torch.stack(_replay(cfg, params, c, prompts[rid],
-                                       a[:-1])[1:])
-                for n, c in ctxs.items()}
+        rows = None
+        if replays is not None:
+            key = (np.asarray(prompts[rid]).tobytes(), tuple(a))
+            rows = replays.get(key)
+        if rows is None:
+            rows = {n: torch.stack(_replay(cfg, params, c, prompts[rid],
+                                           a[:-1])[1:])
+                    for n, c in ctxs.items()}
+            if replays is not None:
+                replays[key] = rows
         others = []
         for t, tok in enumerate(a):
             alt = {int(r[t].argmax()) for r in rows.values()}
@@ -2100,6 +2172,838 @@ def phase_serve_elastic() -> dict:
     del got, want, params
     _free()
     return {"serve_elastic": el["launches"], "serve_tp": tp["launches"]}
+
+
+# --------------------------------------------------- phase 3e: serve_tiers
+# The engine's KV memory tiers at Llama-3-8B's widths on the card: swap to
+# host memory, the host prefix cache, the KV fabric across the two decode
+# instances (placed swap-in, borrowed headroom, peer prefix promotion),
+# copy-on-write sharing and prefill backpressure, through the ServingEngine
+# with ``launch/serve.py``'s ClusterSpec; then the fabric on the
+# 4-position mesh.  Page moves are copies, not kernels.
+TIER_PAGE = 64
+# (a)'s swap model: the reference test's (tests/test_kv_fabric.py:58,
+# 1e8 B/s for 64-token prompts) at 64 times the bandwidth for prompts of
+# 64 times the tokens, so a victim's swap takes what it takes there (85
+# ms of event time).  At 1e8 B/s a 4096-token swap takes 5.45 s, both
+# instances are idle by then, and the fabric resumes on the origin.
+TIER_PCIE_BW = 6.4e9
+# the kinds of device -> host page reads, by the engine function that
+# makes them (a ``_gather`` or ``_store`` suffix names one half of a
+# two-step move)
+READ_KINDS = {"_swap_out": "swap_out", "_demote_blocks": "demote",
+              "peer_pages": "peer_promote_gather"}
+
+
+def _bits(t):
+    """A tensor's bytes as integers, where it lies and as it is strided:
+    NaNs compare too."""
+    import torch
+    return t.detach().view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                            8: torch.int64}[t.element_size()])
+
+
+def _kv_pages(kv, blocks, host: bool = True) -> dict:
+    """Pages ``blocks`` of a ``PagedKVCache`` (unsharded, or striped: a
+    list of per-shard pools), read by plain indexing, on the host through
+    a page-locked buffer (or, ``host=False``, where the pool lies):
+    {layer: {"k"/"v": (nb, n, page, KVH, D)}}."""
+    import torch
+    out = {}
+    for layer, ent in kv.pools.items():
+        out[layer] = {}
+        for part, pool in ent.items():
+            if isinstance(pool, list):
+                pages = []
+                for b in blocks:
+                    s, loc = kv._local(int(b))
+                    pages.append(pool[s][:, loc])
+                t = torch.stack(pages, 1)
+            else:
+                t = pool[:, torch.as_tensor([int(b) for b in blocks],
+                                            device=pool.device)]
+            if host and t.device.type != "cpu":
+                t = torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=True).copy_(t)
+            out[layer][part] = t
+    return out
+
+
+def _host_pages(src, blocks) -> dict:
+    """Pages of a host-side source (``HostKVPool``, a peer gather) as
+    views, a list of one page each: nothing is copied."""
+    return {layer: {part: [pool[:, int(b)] for b in blocks]
+                    for part, pool in ent.items()}
+            for layer, ent in src.pools.items()}
+
+
+def _pages_of(x) -> list:
+    """A part's pages: a list of pages, or the pages of a
+    (nb, n, page, KVH, D) tensor."""
+    return x if isinstance(x, list) else list(x.unbind(1))
+
+
+def _same_pages(got: dict, want: dict) -> bool:
+    """Page by page, as integers."""
+    import torch
+    if got.keys() != want.keys():
+        return False
+    for layer in want:
+        if got[layer].keys() != want[layer].keys():
+            return False
+        for part in want[layer]:
+            g, w = _pages_of(got[layer][part]), _pages_of(want[layer][part])
+            if len(g) != len(w) or not all(
+                    torch.equal(_bits(a), _bits(b)) for a, b in zip(g, w)):
+                return False
+    return True
+
+
+def _nbytes(pages: dict) -> int:
+    return sum(t.numel() * t.element_size()
+               for ent in pages.values() for x in ent.values()
+               for t in _pages_of(x))
+
+
+class PageAudit:
+    """Wraps the page ops of one engine's pools and host tier (instance
+    attributes; nothing in the package changes): every swap-out, demotion,
+    swap-in, host promotion, peer promotion, CoW split and admission copy
+    is held bit for bit, destination pages against source pages, and
+    timed — device ms between CUDA events, host ms on the host clock
+    around a synchronised call.  ``moves`` maps a kind to its list of
+    {pages, bytes, device_ms, host_ms}; ``faults`` lists the moves whose
+    bytes differ; ``audit_s`` is the host time of the audit's own reads
+    and compares."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.cuda = eng.ctx.device.type == "cuda"
+        self.moves: dict = {}
+        self.faults: list = []
+        self.audit_s = 0.0
+        for kv in [eng.pkv] + [d.kv for d in eng.dstates]:
+            kv.read_blocks = self._read(kv, kv.read_blocks)
+            kv.copy_from = self._copy(kv, kv.copy_from)
+            kv.copy_within = self._within(kv, kv.copy_within)
+        if eng.host is not None:
+            eng.host.store = self._store(eng.host, eng.host.store)
+
+    @staticmethod
+    def _caller() -> str:
+        return sys._getframe(2).f_code.co_name
+
+    def _timed(self, fn):
+        """(result, device ms, host ms) of ``fn()``."""
+        import torch
+        if not self.cuda:
+            t0 = time.perf_counter()
+            out = fn()
+            return out, None, (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+    def _held(self, fn):
+        """``fn()``, its host time added to ``audit_s``."""
+        t0 = time.perf_counter()
+        out = fn()
+        self.audit_s += time.perf_counter() - t0
+        return out
+
+    def _note(self, kind, pages, nbytes, dev, host, ok, what):
+        rec = self.moves.setdefault(kind, [])
+        rec.append({"pages": pages, "bytes": nbytes, "device_ms": dev,
+                    "host_ms": host})
+        if not ok:
+            self.faults.append({"kind": kind, "what": what,
+                                "pages": pages})
+
+    def _read(self, kv, fn):
+        def read_blocks(blocks):
+            kind = READ_KINDS[self._caller()]
+            blocks = [int(b) for b in blocks]
+            out, dev, host = self._timed(lambda: fn(blocks))
+            self._note(kind, len(blocks), _nbytes(out), dev, host,
+                       self._held(lambda: _same_pages(
+                           out, _kv_pages(kv, blocks))),
+                       "device pages -> host staging")
+            return out
+        return read_blocks
+
+    def _store(self, pool, fn):
+        def store(blocks, data):
+            caller = self._caller()
+            kind = "swap_out" if caller == "_swap_out" else "demote"
+            blocks = [int(b) for b in blocks]
+            _, _, host = self._timed(lambda: fn(blocks, data))
+            self._note(kind + "_store", len(blocks), _nbytes(data), None,
+                       host, self._held(lambda: _same_pages(
+                           _host_pages(pool, blocks), data)),
+                       "host staging -> host pool")
+        return store
+
+    def _copy(self, kv, fn):
+        from repro_torch.serving.cache_manager import PagedKVCache
+
+        def copy_from(src, src_blocks, dst_blocks):
+            caller = self._caller()
+            src_list = [int(b) for b in src_blocks]
+            dst_list = [int(b) for b in dst_blocks]
+            if not src_list:
+                return fn(src, src_list, dst_list)
+            device_src = isinstance(src, PagedKVCache)
+            if caller == "_on_swap_in_done":
+                kind = "swap_in"
+            elif device_src:
+                kind = "admission"
+            elif src is self.eng.host:
+                kind = "host_promote"
+            else:
+                kind = "peer_promote"
+            # pages from a device pool compare on the device
+            want = self._held(lambda: _kv_pages(src, src_list, host=False)
+                              if device_src else _host_pages(src, src_list))
+            _, dev, host = self._timed(lambda: fn(src, src_list, dst_list))
+            self._note(kind, len(dst_list), _nbytes(want), dev, host,
+                       self._held(lambda: _same_pages(
+                           _kv_pages(kv, dst_list, host=not device_src),
+                           want)),
+                       f"{type(src).__name__} pages -> device pool")
+        return copy_from
+
+    def _within(self, kv, fn):
+        def copy_within(src_block, dst_block):
+            want = self._held(lambda: _kv_pages(kv, [src_block],
+                                                host=False))
+            _, dev, host = self._timed(lambda: fn(src_block, dst_block))
+            self._note("cow_split", 1, _nbytes(want), dev, host,
+                       self._held(lambda: _same_pages(
+                           _kv_pages(kv, [dst_block], host=False), want)),
+                       "copy-on-write page")
+        return copy_within
+
+    def counts(self) -> dict:
+        """{kind: [moves, pages]} (the times go into ``_move_table``)."""
+        return {kind: [len(rec), sum(r["pages"] for r in rec)]
+                for kind, rec in self.moves.items()}
+
+
+def _nan_pools(eng) -> None:
+    """Unused page slots of the engine's device pools hold NaN, so a read
+    that leaks past a mask, or a move that misses a slot, shows.  Kernel
+    path only: the plain path is the reference's oracle (``kernels/
+    ref.py``), which weights masked slots by zero as the Pallas kernels
+    do and so needs the zero-filled pools the engine makes (ROADMAP
+    Queue 3)."""
+    for kv in [eng.pkv] + [d.kv for d in eng.dstates]:
+        for ent in kv.pools.values():
+            for pool in ent.values():
+                for t in (pool if isinstance(pool, list) else [pool]):
+                    t.fill_(float("nan"))
+
+
+class _ChunkCalls:
+    """Counts the engine's chunk forwards, and those over a history (K2's
+    calls: a second chunk, or a first chunk after a promoted prefix)."""
+
+    def __enter__(self):
+        import repro_torch.serving.engine as em
+        self.mod, self.fn = em, em.prefill_chunk_paged
+        self.calls, self.history = 0, 0
+
+        def counted(params, cfg, ctx, toks, pos, pools, hist_bt, off, aux):
+            self.calls += 1
+            self.history += off > 0
+            return self.fn(params, cfg, ctx, toks, pos, pools, hist_bt,
+                           off, aux)
+        em.prefill_chunk_paged = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.prefill_chunk_paged = self.fn
+
+
+def _tier_engine(cfg, params, ctx, jobs, preempt=(), audit=False,
+                 **kw):
+    """One ServingEngine over ``jobs`` [(rid, arrival, prompt, out)], its
+    device pools NaN-filled on the kernel path; ``audit`` wraps its page
+    ops.  Returns (engine, PageAudit or None, launches, predicted
+    launches, wall s of building the engine and of serving)."""
+    import torch
+    from repro_torch.launch.serve import SPEC
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, params, SPEC, _two_chunk_policy(parallel=True),
+                        ctx=ctx, block_size=TIER_PAGE, **kw)
+    if ctx.device.type == "cuda" and ctx.impl != "ref":
+        _nan_pools(eng)
+    pa = PageAudit(eng) if audit else None
+    for rid, arrival, prompt, out in jobs:
+        eng.submit(Request(rid=rid, arrival=arrival, prompt_len=len(prompt),
+                           output_len=out), prompt)
+    for rid, at in preempt:
+        eng.preempt(rid, at=at)
+    _reset_counts()
+    t1 = time.perf_counter()
+    with _ChunkCalls() as cc:
+        eng.serve()
+    if ctx.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = {"build": t1 - t0, "serve": time.perf_counter() - t1}
+    chunks = sum(1 for e in eng.tracer.events if e.kind == "chunk")
+    ticks = sum(1 for e in eng.tracer.events if e.kind == "tick")
+    check(chunks == cc.calls, f"serve_tiers: {cc.calls} chunk forwards "
+          f"where the trace has {chunks} chunks")
+    L = cfg.n_layers
+    n = ctx.pool_shards("prefill")
+    if n > 1:
+        # the mesh: each position rings over the others' K/V (a chunk over
+        # a history twice: its own K/V, then the striped history slabs);
+        # each tick is one split-KV K1 a shard
+        want = {"flash_attention": L * n * n * (chunks + cc.history),
+                "paged_flash_decode": L * n * ticks}
+    else:
+        want = {"flash_attention": L * chunks,
+                "paged_flash_prefill": L * cc.history,
+                "paged_flash_decode": L * ticks}
+    return eng, pa, _read_counts(), want, wall
+
+
+def _drained(eng) -> dict:
+    """What must be back at its baseline when a trace ends."""
+    return {"free_pages": all(d.blocks.n_free == d.blocks.total_blocks
+                              for d in eng.dstates)
+            and eng.pblocks.n_free == eng.pblocks.total_blocks,
+            "swapped_now": eng.swap_stats["swapped_now"],
+            "leases": eng.fabric.leased_blocks + sum(
+                len(d.blocks.leases) for d in eng.dstates),
+            "swap_gauges": sum(i.swapped_tokens + i.swap_in_flight
+                               for i in eng.decodes)}
+
+
+def _telemetry_audit(eng) -> dict:
+    """test_telemetry.py's audits on a served engine: the fabric counters
+    against swap_stats, the per-instance breakdown and the tracer's
+    entries; attribution against each TTFT, bit for bit; closed spans; a
+    Chrome export that parses with one event per tracer event."""
+    from repro_torch.serving.telemetry import attribution_total
+    ss = eng.swap_stats
+    out = {"attribution_bit_equal": all(
+        attribution_total(eng.tracer.attribution(
+            r.rid, r.arrival, r.prefill_done)) == r.ttft
+        for r in eng.reqs.values()),
+        "open_spans": len(eng.tracer.open_spans())}
+    doc = json.loads(json.dumps(eng.export_trace()))
+    xi = [e for e in doc["traceEvents"] if e["ph"] in ("X", "i")]
+    out["chrome_events"] = [len(xi), len(eng.tracer.events)]
+    if "fabric" in ss:
+        fab, pi = ss["fabric"], ss["per_instance"]
+        reg = eng.metrics.snapshot()["counters"]
+        ic = sum(d.transfers.stats["ic_placed_bytes"]
+                 + d.transfers.stats["ic_peer_promote_bytes"]
+                 + d.transfers.stats["ic_lease_bytes"] for d in eng.dstates)
+        out["fabric_counters_agree"] = (
+            all(reg.get(f"fabric/{k}", 0) == fab[k]
+                for k in ("swap_in_placed", "swap_in_pinned", "leases_out",
+                          "leases_recalled", "peer_promotions",
+                          "interconnect_bytes"))
+            and len(eng.tracer.entries("swap_place")) == fab["swap_in_placed"]
+            and fab["swap_in_placed"] + fab["swap_in_pinned"]
+            == ss["swap_ins"]
+            and sum(p["swap_ins"] for p in pi.values()) == ss["swap_ins"]
+            and sum(p["swap_outs"] for p in pi.values()) == ss["swap_outs"]
+            and sum(p["swap_in_placed"] for p in pi.values())
+            == fab["swap_in_placed"]
+            and ic == fab["interconnect_bytes"]
+            and eng.metrics.gauge("fabric/leases_active").value == 0)
+    return out
+
+
+def _tier_scenarios(vocab: int, seed: int = 7):
+    """The seven traces (a)-(f) and their calm twins, as
+    name -> dict(jobs, kw, calm_kw, calm_jobs, preempt_from, fires)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def prompt(L):
+        return rng.integers(0, vocab, L).astype(np.int32)
+
+    out = {}
+    # (a) placed swap: one resident an instance; rid 0 is swap-preempted
+    # between its tokens 5 and 6 while rid 2 waits for its slot, and
+    # resumes on the instance rid 1 has emptied
+    out["placed_swap"] = dict(
+        jobs=[(i, i * 0.005, prompt(4096), o)
+              for i, o in enumerate((24, 18, 16))],
+        kw=dict(max_batch=1, max_seq=4160, preempt_policy="swap",
+                offload=TIER_PCIE_BW),
+        preempt_at=(0, 5))
+    # (b) borrow: 16 pages an instance; rids 0 and 2 (5 pages each) share
+    # instance 0 and, growing into their sixth pages, dip under the 0.3
+    # watermark floor (5 pages) while instance 1 (rid 1, 7 pages) has
+    # room; with the fabric off this trace preempts 7 times.  The calm
+    # run has no watermark
+    out["borrow"] = dict(
+        jobs=[(0, 0.0, prompt(300), 32), (1, 0.02, prompt(400), 8),
+              (2, 0.04, prompt(300), 32)],
+        kw=dict(max_batch=2, max_seq=512, preempt_watermark=0.3),
+        calm_kw=dict(max_batch=2, max_seq=512))
+    # (c) peer promotion: a 6144-token base decoding 60 tokens; its twin
+    # shares the first 6080 tokens (95 pages) and arrives at the base's
+    # token 2, landing on the other instance
+    base = prompt(6144)
+    twin = base.copy()
+    twin[6080:] = prompt(64)
+    out["peer_promote"] = dict(
+        jobs=[(0, 0.0, base, 60), (1, None, twin, 8)],
+        kw=dict(max_batch=2, max_seq=6208), calm_kw=dict(
+            max_batch=2, max_seq=6208, fabric="off"),
+        arrive_at=(1, 0, 2))
+    # (d) host prefix hit: a 4096-token request finishes and its pages
+    # demote; the twin arrives after it left the card
+    a = prompt(4096)
+    out["host_prefix"] = dict(
+        jobs=[(0, 0.0, a, 6), (1, None, a.copy(), 6)],
+        kw=dict(max_batch=2, max_seq=4160), arrive_after=(1, 0, 0.5))
+    # (e) CoW: B's prompt is A's first 4000 tokens, ending inside a page,
+    # so B's first token lands in a page it shares with A
+    a = prompt(4096)
+    out["cow"] = dict(
+        jobs=[(0, 0.0, a, 12), (1, 0.01, a[:4000].copy(), 8)],
+        kw=dict(max_batch=2, max_seq=4160),
+        calm_kw=dict(max_batch=2, max_seq=4160, prefix_sharing=False))
+    # (f) backpressure: 80 prefill pages for three concurrent 4096-token
+    # prefills (64 pages each)
+    out["backpressure"] = dict(
+        jobs=[(i, i * 0.001, prompt(4096), 4) for i in range(3)],
+        kw=dict(max_batch=4, max_seq=4160, prefill_pool_blocks=80),
+        calm_kw=dict(max_batch=4, max_seq=4160))
+    return out
+
+
+# the fp32 runs' depth: tokens exact on two layers at full widths, as in
+# phase tokens (the event clock, and so every scenario's timing, does not
+# depend on the depth or the dtype)
+TIER_FP32_LAYERS = 2
+
+
+def _fires(name, eng, pa=None) -> dict:
+    """Scenario ``name``'s mechanism on a served engine: its counters and
+    whether it fired."""
+    ss = eng.swap_stats
+    fab = ss.get("fabric", {})
+    if name == "placed_swap":
+        c = {"swap_in_placed": fab.get("swap_in_placed", 0),
+             "rid0_instance": eng.reqs[0].decode_instance}
+        ok = c["swap_in_placed"] >= 1 and c["rid0_instance"] == 1
+    elif name == "borrow":
+        c = {k: fab.get(k, 0) for k in ("leases_out", "leases_recalled")}
+        c["preemptions"] = len(eng.preempt_log)
+        ok = (c["leases_out"] >= 1 and c["preemptions"] == 0
+              and c["leases_recalled"] == c["leases_out"])
+    elif name == "peer_promote":
+        twin = eng.reqs[1]
+        c = {k: fab.get(k, 0) for k in ("peer_promotions",
+                                        "peer_promoted_blocks")}
+        c["twin_planned_tokens"] = sum(ch[0] for ch in twin.chunk_plan)
+        c["instances"] = [eng.reqs[0].decode_instance,
+                          twin.decode_instance]
+        ok = (c["peer_promotions"] >= 1 and c["peer_promoted_blocks"] >= 90
+              and c["twin_planned_tokens"]
+              <= twin.prompt_len - 90 * TIER_PAGE
+              and c["instances"][0] != c["instances"][1])
+    elif name == "host_prefix":
+        c = {k: ss[k] for k in ("demotions", "demote_gathers",
+                                "host_prefix_hits")}
+        c["twin_decodes_as_a"] = eng.outputs[0] == eng.outputs[1]
+        if pa is not None:
+            c["largest_demote_gather"] = max(
+                (r["pages"] for r in pa.moves.get("demote", [])), default=0)
+        ok = (c["demotions"] >= 63 and c["host_prefix_hits"] >= 63
+              and c.get("largest_demote_gather", 63) >= 63)
+    elif name == "cow":
+        c = {"cow": sum(d.blocks.stats["cow"] for d in eng.dstates),
+             "shared": sum(d.blocks.stats["shared"] for d in eng.dstates)}
+        ok = c["cow"] >= 1
+    else:
+        c = {"restarts": sum(r.preemptions for r in eng.reqs.values()),
+             "done": sum(r.done is not None for r in eng.reqs.values())}
+        ok = c["restarts"] >= 1 and c["done"] == len(eng.reqs)
+    return {"ok": ok, **c}
+
+
+def _tier_times(sc, run) -> tuple:
+    """Resolve a scenario's timed parts against calm runs of ``run``
+    (jobs, engine kw -> engine): arrivals keyed to another request's
+    token or finish, and the manual preemption between two tokens.
+    Returns (jobs, preempt, the calm run where resolving took one, else
+    None)."""
+    jobs = list(sc["jobs"])
+    if "arrive_at" in sc or "arrive_after" in sc:
+        rid, of, x = sc.get("arrive_at") or sc["arrive_after"]
+        probe = run([j for j in jobs if j[0] == of],
+                    sc.get("calm_kw", sc["kw"]))
+        r = probe.reqs[of]
+        t = r.token_times[x] if "arrive_at" in sc else r.done + x
+        jobs = [(i, t if i == rid else a, p, o) for i, a, p, o in jobs]
+    preempt, calm = (), None
+    if "preempt_at" in sc:
+        rid, k = sc["preempt_at"]
+        calm = run(jobs, sc.get("calm_kw", sc["kw"]))
+        tt = calm.reqs[rid].token_times
+        preempt = ((rid, 0.5 * (tt[k] + tt[k + 1])),)
+    return jobs, preempt, calm
+
+
+def _engine_kw(kw: dict, side_lm) -> dict:
+    kw = {"prefill_pool_blocks": 256, **kw}
+    bw = kw.pop("offload", None)
+    if bw is not None:
+        kw["offload_model"] = side_lm.HostOffloadModel(pcie_bw=bw, base=0.0)
+    return kw
+
+
+def _copy_yardsticks(sizes) -> dict:
+    """Host-clock ms (median of three) of moving each of ``sizes`` bytes
+    by plain copies: to and from a page-locked buffer with
+    ``non_blocking=True``, to and from pageable memory, and card to card;
+    beside the card to card bound, 2 x bytes over the HBM rate.  One
+    buffer of each kind, of the largest size, serves every size."""
+    import torch
+    sizes = sorted(set(sizes))
+    top = sizes[-1]
+    dev = torch.empty(top, dtype=torch.uint8, device="cuda")
+    dev2 = torch.empty_like(dev)
+    pinned = torch.empty(top, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.empty(top, dtype=torch.uint8)
+
+    def ms(fn):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[1]
+
+    out = {}
+    for n in sizes:
+        d, d2, pin, page = dev[:n], dev2[:n], pinned[:n], pageable[:n]
+        out[n] = {
+            "d2h_pinned_ms": ms(lambda: pin.copy_(d, non_blocking=True)),
+            "h2d_pinned_ms": ms(lambda: d.copy_(pin, non_blocking=True)),
+            "d2h_pageable_ms": ms(lambda: page.copy_(d)),
+            "h2d_pageable_ms": ms(lambda: d.copy_(page)),
+            "d2d_ms": ms(lambda: d2.copy_(d)),
+            "d2d_bound_ms": 2 * n / PEAK_BYTES_S * 1e3}
+    del dev, dev2, pinned, pageable
+    return out
+
+
+def _move_table(audits) -> dict:
+    """Each kind of page move over ``audits``: totals, the largest move's
+    own times and rate, and the event clock's modelled time for it (the
+    reference's constants: HostOffloadModel 24e9 B/s, InterconnectModel
+    50e9 B/s).  ``_with_yardsticks`` adds the plain copies."""
+    from repro_torch.core.latency_model import (HostOffloadModel,
+                                                InterconnectModel)
+    pcie, ic = HostOffloadModel(), InterconnectModel()
+    merged: dict = {}
+    for pa in audits:
+        for kind, rec in pa.moves.items():
+            merged.setdefault(kind, []).extend(rec)
+    out = {}
+    for kind, rec in merged.items():
+        if kind.endswith(("_store", "_gather")):
+            continue
+        # the other half of a two-step move: a swap-out's or demotion's
+        # landing in the host pool, a peer promotion's gather to the host
+        halves = {h: merged.get(f"{kind}_{h}", []) for h in ("store",
+                                                            "gather")}
+        big = max(rec, key=lambda r: r["bytes"])
+        row = {"moves": len(rec), "pages": sum(r["pages"] for r in rec),
+               "bytes": sum(r["bytes"] for r in rec),
+               "device_ms": sum(r["device_ms"] or 0.0 for r in rec)
+               + sum(r["device_ms"] or 0.0 for r in halves["gather"]),
+               "host_ms": sum(r["host_ms"] for r in rec) + sum(
+                   r["host_ms"] for h in halves.values() for r in h),
+               "largest": {"pages": big["pages"], "bytes": big["bytes"],
+                           "device_ms": big["device_ms"],
+                           "host_ms": big["host_ms"]}}
+        for h, part in halves.items():
+            if part:
+                row[f"{h}_host_ms"] = sum(r["host_ms"] for r in part)
+                row[f"{h}_device_ms"] = sum(r["device_ms"] or 0.0
+                                            for r in part)
+        row["gb_s"] = row["bytes"] / row["host_ms"] / 1e6
+        if kind in ("swap_out", "demote", "swap_in", "host_promote"):
+            row["modelled_ms"] = pcie.swap_time(big["bytes"]) * 1e3
+        elif kind == "peer_promote":
+            row["modelled_ms"] = ic.transfer_time(big["bytes"]) * 1e3
+        out[kind] = row
+    return out
+
+
+def _with_yardsticks(tables) -> None:
+    """Each row of ``tables`` gets the plain copies of its largest move's
+    bytes, each distinct size timed once."""
+    yard = _copy_yardsticks([row["largest"]["bytes"] for t in tables
+                             for row in t.values()])
+    for t in tables:
+        for row in t.values():
+            row["yardsticks"] = yard[row["largest"]["bytes"]]
+
+
+def _tier_scenario(name, sc, cfg, params, ctx, lm, fp32):
+    """One scenario at full depth in bf16: calm and pressured runs on the
+    kernel path, the pressured run on the plain path, both pressured runs
+    audited page by page; returns what the phase checks and reports."""
+    def run(jobs, kw, impl=None, preempt=(), audit=False):
+        return _tier_engine(cfg, params, ctx.with_(impl=impl), jobs,
+                            preempt=preempt, audit=audit,
+                            **_engine_kw(kw, lm))
+
+    jobs, preempt = fp32["jobs"], fp32["preempt"]
+    calm_kw = sc.get("calm_kw", sc["kw"])
+    calm, _, c_counts, c_want, c_wall = run(jobs, calm_kw)
+    eng, pa, counts, want, wall = run(jobs, sc["kw"], preempt=preempt,
+                                      audit=True)
+    plain, ppa, p_counts, _, p_wall = run(jobs, sc["kw"], impl="ref",
+                                          preempt=preempt, audit=True)
+    fires = _fires(name, eng, pa)
+    res = {"fires": fires, "plain_fires": _fires(name, plain, ppa),
+           "wall_s": {"calm": c_wall, "kernel": wall, "plain": p_wall},
+           "launches": {"calm": c_counts, "pressured": counts,
+                        "plain": p_counts},
+           "predicted": {"calm": c_want, "pressured": want},
+           "page_faults": pa.faults + ppa.faults,
+           "audit_s": {"kernel": pa.audit_s, "plain": ppa.audit_s},
+           "moves": pa.counts(), "drained": _drained(eng),
+           "telemetry": _telemetry_audit(eng),
+           "same_clock_as_fp32": {
+               rid: r.token_times == fp32["calm"].reqs[rid].token_times
+               for rid, r in calm.reqs.items()},
+           "outputs": {"calm": dict(calm.outputs),
+                       "pressured": dict(eng.outputs),
+                       "plain": dict(plain.outputs)}}
+    emit(phase="serve_tiers", model=cfg.name, scenario=name,
+         **{k: v for k, v in res.items() if k != "outputs"},
+         outputs={k: {str(r): t for r, t in o.items()}
+                  for k, o in res["outputs"].items()})
+    res["audit"] = pa
+    return res
+
+
+def _tier_fp32(name, sc, cfg32, params32, ctx, lm):
+    """One scenario in fp32 at ``TIER_FP32_LAYERS`` layers: the timing
+    probes and calm run, then the pressured run on the kernel and plain
+    paths; the tokens of all three must be identical."""
+    def run(jobs, kw, impl=None, preempt=()):
+        return _tier_engine(cfg32, params32, ctx.with_(impl=impl), jobs,
+                            preempt=preempt, **_engine_kw(kw, lm))[0]
+
+    jobs, preempt, calm = _tier_times(sc, run)
+    if calm is None:
+        calm = run(jobs, sc.get("calm_kw", sc["kw"]))
+    kern = run(jobs, sc["kw"], preempt=preempt)
+    plain = run(jobs, sc["kw"], impl="ref", preempt=preempt)
+    same = dict(calm.outputs) == dict(kern.outputs) == dict(plain.outputs)
+    fires = _fires(name, kern)
+    emit(phase="serve_tiers", model=cfg32.name, dtype="float32",
+         layers=cfg32.n_layers, scenario=name, fires=fires,
+         identical=same, preempt=preempt,
+         arrivals={str(j[0]): j[1] for j in jobs},
+         outputs={str(k): v for k, v in kern.outputs.items()})
+    check(fires["ok"], f"serve_tiers fp32 {name}: the mechanism did not "
+          f"fire: {fires}")
+    check(same, f"serve_tiers fp32 {name}: tokens differ between the calm "
+          "run, the pressured kernel run and the plain run")
+    check(fires.get("twin_decodes_as_a", True), f"serve_tiers fp32 {name}: "
+          "the twin promoted from the host tier decodes other tokens")
+    return {"jobs": jobs, "preempt": preempt, "calm": calm,
+            "outputs": dict(calm.outputs)}
+
+
+def _tier_mesh(name, sc, cfg, params, lm, fp32, cfg32, params32, n):
+    """(g): scenario ``name`` on the ``n``-position mesh of the one card,
+    both decode pools striped ``n`` ways: fp32 tokens equal the
+    unsharded calm run's; the bf16 run audited and checked as on one
+    device."""
+    mesh = _sp_context()
+    kw = _engine_kw(sc["kw"], lm)
+    eng32 = _tier_engine(cfg32, params32, mesh, fp32["jobs"],
+                         preempt=fp32["preempt"], **kw)[0]
+    same = dict(eng32.outputs) == fp32["outputs"]
+    eng, pa, counts, want, wall = _tier_engine(
+        cfg, params, mesh, fp32["jobs"], preempt=fp32["preempt"],
+        audit=True, **kw)
+    fires = _fires(name, eng, pa)
+    res = {"fires": fires, "fp32_fires": _fires(name, eng32),
+           "fp32_identical": same, "wall_s": wall, "launches": counts,
+           "predicted": want, "page_faults": pa.faults,
+           "audit_s": pa.audit_s, "moves": pa.counts(),
+           "drained": _drained(eng),
+           "telemetry": _telemetry_audit(eng),
+           "kv_shards": [d.kv_shards for d in eng.dstates]
+           + [eng.pkv.kv_shards]}
+    emit(phase="serve_tiers", model=cfg.name, mesh=n, scenario=name,
+         **res, outputs={str(k): v for k, v in eng.outputs.items()})
+    res["outputs"], res["audit"] = dict(eng.outputs), pa
+    return res
+
+
+def _tier_gates(tag, res) -> None:
+    """The gates every audited bf16 run must pass."""
+    d = res["drained"]
+    t = res["telemetry"]
+    check(res["fires"]["ok"], f"{tag}: the mechanism did not fire: "
+          f"{res['fires']}")
+    check(not res["page_faults"], f"{tag}: page moves not bit-exact: "
+          f"{res['page_faults']}")
+    check(d["free_pages"] and d["swapped_now"] == 0 and d["leases"] == 0
+          and d["swap_gauges"] == 0, f"{tag}: not drained: {d}")
+    check(t["attribution_bit_equal"] and t["open_spans"] == 0
+          and t["chrome_events"][0] == t["chrome_events"][1]
+          and t.get("fabric_counters_agree", True),
+          f"{tag}: telemetry audit failed: {t}")
+
+
+def phase_serve_tiers() -> dict:
+    """Llama-3-8B at full width, bf16, through the ServingEngine with
+    ``launch/serve.py``'s ClusterSpec (16 prefill, 2 decode instances),
+    pages of 64: the six tier scenarios (a)-(f) of ``_tier_scenarios`` on
+    one device and (a), (c) on the 4-position mesh (g).  Every scenario
+    runs first in fp32 at ``TIER_FP32_LAYERS`` layers (timing probes and
+    calm runs; tokens identical between calm, pressured and plain runs),
+    then at full depth in bf16: calm and pressured runs on the kernel
+    path, the pressured run on the plain path.  Gates: each mechanism
+    fires; every page move bit-exact (``PageAudit``); K1-K3 launch as
+    the trace predicts; every stream under the tie rule of phase
+    serve_sp; telemetry audits; everything drained.  Prints the page
+    moves' times beside plain copies and the event clock's model.
+    Returns the launch counts of the bf16 kernel-path runs by path."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import latency_model as lm
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.sharding import make_context
+    cfg = get_config("llama3-8b")
+    ctx = make_context("cuda")
+    cfg32 = dataclasses.replace(cfg, n_layers=TIER_FP32_LAYERS,
+                                dtype="float32")
+    params32 = init_params(cfg32, seed=11, device=ctx.device)
+    scen = _tier_scenarios(cfg.vocab_size)
+    emit(phase="serve_tiers", fp32_cut=f"fp32 runs at {TIER_FP32_LAYERS} of "
+         f"{cfg.n_layers} layers (full widths): exact tokens need fp32, "
+         "and the event clock does not depend on the depth")
+    t0 = time.perf_counter()
+    fp32 = {name: _tier_fp32(name, sc, cfg32, params32, ctx, lm)
+            for name, sc in scen.items()}
+    fp32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=ctx.device)
+    torch.cuda.synchronize()
+    emit(phase="serve_tiers", model=cfg.name, dtype=cfg.dtype,
+         layers=cfg.n_layers, params=count_params(params),
+         init_s=round(time.perf_counter() - t0, 2), fp32_s=round(fp32_s, 2))
+    stage_s = {"fp32": fp32_s}
+    t0 = time.perf_counter()
+    res = {}
+    for name, sc in scen.items():
+        _free()
+        res[name] = _tier_scenario(name, sc, cfg, params, ctx, lm,
+                                   fp32[name])
+    stage_s["bf16"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = {}
+    for name in ("placed_swap", "peer_promote"):
+        _free()
+        mesh[name] = _tier_mesh(name, scen[name], cfg, params, lm,
+                                fp32[name], cfg32, params32, SP)
+    stage_s["mesh"] = time.perf_counter() - t0
+    # the gates
+    by_path = {"serve_tiers": dict.fromkeys(SOURCES, 0),
+               "sp_fabric": dict.fromkeys(SOURCES, 0)}
+    for name, r in res.items():
+        _tier_gates(f"serve_tiers {name}", r)
+        check(r["plain_fires"]["ok"] and not any(
+            r["launches"]["plain"].values()),
+            f"serve_tiers {name}: the plain path launched kernels or its "
+            f"mechanism did not fire: {r['launches']['plain']}")
+        check(all(r["same_clock_as_fp32"].values()),
+              f"serve_tiers {name}: the bf16 event clock differs from the "
+              "fp32 runs'")
+        for run in ("calm", "pressured"):
+            got = r["launches"][run]
+            want = {k: r["predicted"][run].get(k, 0) for k in got}
+            check(got == want, f"serve_tiers {name} {run}: launches {got} "
+                  f"where the trace predicts {want}")
+            for k, v in got.items():
+                by_path["serve_tiers"][k] += v
+    for name, r in mesh.items():
+        _tier_gates(f"serve_tiers mesh {name}", r)
+        check(r["fp32_fires"]["ok"] and r["fp32_identical"],
+              f"serve_tiers mesh {name}: fp32 tokens differ from the "
+              "unsharded engine's, or the mechanism did not fire")
+        check(r["kv_shards"] == [SP] * 3,
+              f"serve_tiers mesh {name}: pools striped {r['kv_shards']}")
+        want = {k: r["predicted"].get(k, 0) for k in r["launches"]}
+        check(r["launches"] == want, f"serve_tiers mesh {name}: launches "
+              f"{r['launches']} where the trace predicts {want}")
+        for k, v in r["launches"].items():
+            by_path["sp_fabric"][k] += v
+    _check_launches(by_path["serve_tiers"], "serve_tiers")
+    _check_launches(by_path["sp_fabric"], "sp_fabric")
+    # bf16 streams: every request whose streams part anywhere is
+    # teacher-forced along the calm run's stream under the tie rule (a
+    # stream no engine parts from is identical, token for token); twins
+    # with one prompt and one calm stream replay once
+    t0 = time.perf_counter()
+    ties, replays = {}, {}
+    for name, r in res.items():
+        sc = scen[name]
+        prompts = {j[0]: j[2] for j in sc["jobs"]}
+        got = {"pressured": r["outputs"]["pressured"],
+               "plain": r["outputs"]["plain"]}
+        if name in mesh:
+            got["mesh"] = mesh[name]["outputs"]
+        want = r["outputs"]["calm"]
+        rids = [rid for rid, a in want.items()
+                if any(g[rid] != a for g in got.values())]
+        if not rids:
+            ties[name] = {"identical": True}
+            continue
+        ties[name] = _stream_ties(
+            cfg, params, {"kernel": ctx, "plain": ctx.with_(impl="ref")},
+            prompts, {rid: want[rid] for rid in rids}, got,
+            replays=replays)
+    emit(phase="serve_tiers", model=cfg.name, stream_ties=ties,
+         tie_tol=TIE_TOL)
+    check(all(o["tie"] for t in ties.values() if "identical" not in t
+              for rr in t.values() for o in rr["others"]),
+          f"serve_tiers: a stream parts from its calm run at a step that is "
+          f"no tie: {ties}")
+    stage_s["ties"] = time.perf_counter() - t0
+    # the page moves' numbers
+    t0 = time.perf_counter()
+    one = _move_table([r["audit"] for r in res.values()])
+    striped = _move_table([r["audit"] for r in mesh.values()])
+    _with_yardsticks([one, striped])
+    emit(phase="serve_tiers", model=cfg.name, moves=one)
+    emit(phase="serve_tiers", model=cfg.name, mesh=SP, moves=striped)
+    stage_s["yardsticks"] = time.perf_counter() - t0
+    emit(phase="serve_tiers", launches=by_path, stage_s=stage_s)
+    del params, params32
+    _free()
+    return by_path
 
 
 # ---------------------------------------------------------------- phase 4
@@ -3669,12 +4573,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="*",
                     choices=["device", "kernels", "serve", "serve_sp",
-                             "serve_elastic", "sp_families", "dense",
-                             "whisper", "tokens", "train", "profile"])
+                             "serve_elastic", "serve_tiers", "sp_families",
+                             "dense", "whisper", "tokens", "train",
+                             "profile"])
     args = ap.parse_args(argv)
     phases = args.only or ["device", "kernels", "serve", "serve_sp",
-                           "serve_elastic", "sp_families", "dense",
-                           "whisper", "tokens", "train"]
+                           "serve_elastic", "serve_tiers", "sp_families",
+                           "dense", "whisper", "tokens", "train"]
 
     import torch
     if not torch.cuda.is_available():
@@ -3692,6 +4597,8 @@ def main(argv=None) -> int:
         by_path["serve_sp"] = phase_serve_sp()
     if "serve_elastic" in phases:
         by_path.update(phase_serve_elastic())
+    if "serve_tiers" in phases:
+        by_path.update(phase_serve_tiers())
     if "sp_families" in phases:
         by_path.update(phase_sp_families())
     if "dense" in phases:

@@ -11,10 +11,12 @@ Two calibrations ship:
   set ``c_s = 2 * d_s`` — intra-chunk causal attention does half the
   pair-work of chunk-vs-history attention, so the per-pair coefficient is
   exactly twice the (causal) quadratic one.
-* ``analytic_model(cfg, ...)`` — derived from hardware peaks (defaults: TPU
-  v5e, 197 TFLOP/s bf16, MFU ~0.45) for any ModelConfig; the TPU-native
-  deployment path.  For SSM-dominated stacks the quadratic terms vanish and
-  the model degrades gracefully to linear (DESIGN.md §Arch-applicability).
+* ``analytic_model(cfg, ...)`` — derived from a peak rate and an MFU for
+  any ModelConfig.  Its default constants are the reference package's
+  modelled ones, kept so that the event clock equals the reference's; they
+  describe no measured rate of the card the port runs on.  For
+  SSM-dominated stacks the quadratic terms vanish and the model degrades
+  gracefully to linear (DESIGN.md §Arch-applicability).
 
 Decode latency model for the simulator: per-(SP, TP) multipliers calibrated
 to the paper's Fig. 2 measurements.
@@ -127,6 +129,9 @@ def table1_model() -> PrefillLatencyModel:
 
 
 # --------------------------------------------------------------- analytic
+# The reference package's modelled hardware tables, copied unchanged so
+# that ``analytic_model`` gives the reference's coefficients.  They are
+# inputs of a model, not rates of the card the port runs on.
 TPU_V5E = dict(peak_flops=197e12, hbm_bw=819e9, ici_bw=50e9)
 A100 = dict(peak_flops=312e12, hbm_bw=2039e9, ici_bw=300e9)
 
@@ -166,9 +171,11 @@ class HostOffloadModel:
     FLOPs that recompute preemption burns.  The engine's ``auto`` policy
     compares ``swap_time`` of a victim's resident pages against the
     prefill model's latency for its resume sequence — the PCIe term is
-    the only new hardware constant.  Defaults are PCIe gen4 x16 with a
-    conservative effective bandwidth and a per-transfer launch overhead
-    (DMA setup + pinned-buffer staging).
+    the only new hardware constant.  The defaults (an effective bandwidth
+    and a per-transfer overhead) are the reference package's modelled
+    constants, kept so that the event clock equals the reference's; what
+    the port's page copies take on the card is measured by
+    ``chip_smoke.py`` phase ``serve_tiers`` and written in PERF.md.
     """
     pcie_bw: float = 24e9        # bytes/s, effective device<->host
     base: float = 2e-4           # s per transfer (DMA launch/staging)
@@ -185,13 +192,17 @@ class InterconnectModel:
 
     Where ``HostOffloadModel`` prices the PCIe hop to host memory, this
     prices the direct accelerator interconnect between two decode
-    instances — ICI on TPU pods, NVLink/IB on GPU clusters.  The fabric
+    instances (an accelerator interconnect, such as NVLink).  The fabric
     adds this term whenever KV pages cross an instance boundary: a swap
     victim resuming on a non-origin instance, a peer-resident prefix
-    chain promoted into another pool's pages.  Defaults are TPU v5e ICI
-    effective bandwidth with a small per-transfer launch cost (collective
-    setup), deliberately cheaper than the PCIe hop so placement prefers
-    staying on-fabric over bouncing through the host.
+    chain promoted into another pool's pages.  The defaults (an effective
+    bandwidth and a small per-transfer cost) are the reference package's
+    modelled constants, kept so that the event clock equals the
+    reference's; they are cheaper than the PCIe hop so placement prefers
+    staying on-fabric over bouncing through the host.  They are no rate of
+    the card: the port's peer move goes card -> host -> card (see
+    ``serving/kv_fabric.py``), measured by ``chip_smoke.py`` phase
+    ``serve_tiers``.
     """
     link_bw: float = 50e9        # bytes/s, effective device<->device
     base: float = 5e-5           # s per transfer (collective launch)

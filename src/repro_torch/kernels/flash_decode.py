@@ -16,10 +16,12 @@ versions, and the page helpers of the serving engine's block pools.
   Pallas ``flash_decode``.  It runs the split-KV design of K1, with the
   row's keys cut into virtual pages.
 * Page helpers (``scatter_kv_chunk``, ``copy_kv_blocks``,
-  ``gather_kv_blocks``, ``scatter_kv_blocks``, ``copy_kv_block_within``)
-  are indexing, not kernels: the reference runs them as XLA scatters on
-  donated buffers, here they write the live pool tensors in place.  Pools
-  carry the layer axis first, (nb, n_pages, page, KVH, D).
+  ``gather_kv_blocks``, ``scatter_kv_blocks``, ``copy_kv_block_within``,
+  and the validation helpers ``gather_kv_pages``, ``scatter_kv_token``,
+  ``scatter_kv_prefill``) are indexing, not kernels: the reference runs
+  them as XLA scatters on donated buffers, here they write the live pool
+  tensors in place.  Pools carry the layer axis first, (nb, n_pages,
+  page, KVH, D).
 * Their sharded twins (``shard_*``) run over a striped pool: a list of
   per-shard pools (nb, blocks_per_shard + 1, page, KVH, D), each on its
   mesh position's device, addressed by per-shard local page ids.  Each
@@ -86,6 +88,38 @@ def copy_kv_block_within(pool: torch.Tensor, src_block: int,
                          dst_block: int) -> None:
     """Copy one page onto another in the same pool (copy-on-write split)."""
     pool[:, dst_block] = pool[:, src_block]
+
+
+def gather_kv_pages(pool: torch.Tensor, block_table: torch.Tensor
+                    ) -> torch.Tensor:
+    """Dense view of paged KV, a copy (validation helper: the serving path
+    reads the pool through block tables and never builds this).  pool
+    (nb, n_pages, page, KVH, D), block_table (B, npg) physical ids ->
+    (nb, B, npg * page, KVH, D)."""
+    nb = pool.shape[0]
+    B, npg = block_table.shape
+    g = pool[:, block_table.long()]          # (nb, B, npg, page, KVH, D)
+    return g.reshape(nb, B, npg * pool.shape[2], *pool.shape[3:])
+
+
+def scatter_kv_token(pool: torch.Tensor, block_table: torch.Tensor,
+                     lengths: torch.Tensor, new: torch.Tensor) -> None:
+    """Write one token a row (nb, B, KVH, D) at logical position
+    ``lengths[b]``, in place (validation helper: the decode tick appends
+    inside ``fused_append_attend``)."""
+    page = pool.shape[2]
+    ln = lengths.long()
+    phys = block_table.long()[torch.arange(block_table.shape[0],
+                                           device=ln.device), ln // page]
+    pool[:, phys, ln % page] = new.to(pool.dtype)
+
+
+def scatter_kv_prefill(pool: torch.Tensor, blocks: torch.Tensor,
+                       seq_kv: torch.Tensor) -> None:
+    """Write a whole sequence (nb, S, KVH, D) into its pages ``blocks``
+    in place: token i lands in page ``blocks[i // page]``."""
+    scatter_kv_chunk(pool, blocks, seq_kv,
+                     torch.arange(seq_kv.shape[1], device=pool.device))
 
 
 # ----------------------------------------------------- sharded page helpers

@@ -489,9 +489,9 @@ class ServingEngine(Simulator):
                                     block_size=block_size, kv_shards=n_sp,
                                     kv_head_shards=self.pkv.kv_head_shards)
         # cluster KV fabric (serving/kv_fabric.py): owns the host tier —
-        # numpy mirror pool shared by swap records and the LRU second-tier
-        # prefix cache — plus the registry of every decode instance's
-        # block books, and the cross-instance behaviors (placed swap-in,
+        # a CPU tensor mirror pool shared by swap records and the LRU
+        # second-tier prefix cache — plus the registry of every decode
+        # instance's block books, and the cross-instance behaviors (placed swap-in,
         # page borrow/lend, peer prefix promotion).  ``fabric="auto"``
         # turns those on exactly when there is more than one decode
         # instance; a single-instance engine (or fabric="off"/None)

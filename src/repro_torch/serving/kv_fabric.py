@@ -68,13 +68,16 @@ from repro_torch.serving.kv_offload import (HostKVPool, HostPrefixCache,
 class _PeerPages:
     """A ``read_blocks`` gather presented as a ``copy_from`` source.
 
-    ``read_blocks`` returns numpy pools of exactly the gathered pages in
+    ``read_blocks`` returns CPU tensors of exactly the gathered pages in
     request order — layer -> {"k"/"v": (nb, n, page, KVH, D)} — which is
-    the host-pool layout ``PagedKVCache.copy_from`` already consumes
-    (numpy source, positional page slicing).  Wrapping it with positional
+    the host-pool layout ``PagedKVCache.copy_from`` already consumes (a
+    host source, positional page slicing).  Wrapping it with positional
     block ids ``0..n-1`` turns any cross-pool page move into the existing
     host-promotion code path: no new kernels, and the destination-side
-    scatter works for unsharded and sharded pools alike."""
+    scatter works for unsharded and sharded pools alike.  So a peer move
+    travels card -> pageable host memory -> card, both copies
+    synchronous, where the event clock models one interconnect hop
+    (``InterconnectModel``)."""
 
     def __init__(self, pools: Dict[str, dict]):
         self.pools = pools

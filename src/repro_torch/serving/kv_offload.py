@@ -9,12 +9,13 @@ proactive KV migration both make the same observation: long-context
 capacity comes from *moving* KV across memory tiers, not dropping it.
 This module adds that tier:
 
-* ``HostKVPool`` — block-granular numpy host buffers mirroring the device
-  ``PagedKVCache`` layout (per attention layer ``(nb, total_blocks, page,
-  KVH, D)``), with the same free-list accounting.  Pages move device->host
-  through ``PagedKVCache.read_blocks`` (``kernels/flash_decode.
-  gather_kv_blocks``) and host->device through ``PagedKVCache.copy_from``
-  (``scatter_kv_blocks``, host pages sliced before they cross PCIe).
+* ``HostKVPool`` — block-granular host (CPU tensor) buffers mirroring the
+  device ``PagedKVCache`` layout (per attention layer ``(nb, total_blocks,
+  page, KVH, D)``), with the same free-list accounting.  Pages move
+  device->host through ``PagedKVCache.read_blocks`` (``kernels/
+  flash_decode.gather_kv_blocks``) and host->device through
+  ``PagedKVCache.copy_from`` (``scatter_kv_blocks``, host pages sliced
+  before they cross PCIe).
 * ``SwapManager`` — bookkeeping for swap-preempted residents: per-request
   ``SwapRecord`` (host blocks + the ``_DecodeMeta`` fields needed to
   resume token-for-token), swap byte/counter accounting, and the
@@ -54,13 +55,18 @@ class HostKVPool:
 
     Layout matches ``PagedKVCache`` minus the scratch page: per attention
     layer ``{"k"/"v": (nb, total_blocks, block_size, KVH, D)}`` CPU
-    tensors in the pool's dtype (page-locked when a CUDA device is
-    present, so page copies to and from the card can run asynchronously),
-    so device<->host moves are whole-page slices and
-    ``PagedKVCache.copy_from`` can consume this pool directly as a
-    promotion source.  Accounting is a plain free list — host blocks are
-    never shared or refcounted (each swap record / cache entry owns its
-    blocks outright)."""
+    tensors in the pool's dtype, so device<->host moves are whole-page
+    slices and ``PagedKVCache.copy_from`` can consume this pool directly
+    as a promotion source.  The tensors are page-locked when a CUDA device
+    is present, but no copy uses that yet: every move is synchronous and
+    staged through pageable memory.  A swap-out or demotion gathers the
+    pages on the card and copies them into a pageable CPU tensor
+    (``PagedKVCache.read_blocks``), which ``store`` then copies into this
+    pool; a swap-in or promotion indexes this pool with a list of blocks
+    (a pageable copy) and uploads that synchronously (``copy_from``).
+    Accounting is a plain free list — host blocks are never shared or
+    refcounted (each swap record / cache entry owns its blocks
+    outright)."""
 
     def __init__(self, cfg, total_blocks: int, block_size: int,
                  dtype: Optional[str] = None):

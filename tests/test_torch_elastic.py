@@ -34,6 +34,7 @@ from repro_torch.serving.cache_manager import shard_block_table
 from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Request as TRequest
 from test_torch_engine import _two_chunk
+from port_fixtures import one_torch_thread  # noqa: F401
 
 OUT = 8
 

@@ -21,6 +21,10 @@ from repro_torch.models.params import params_from_numpy
 from repro_torch.models.sharding import CPU_CTX
 from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Request as TRequest
+from port_fixtures import (one_torch_thread,  # noqa: F401
+                           reference_compile_cache)
+
+pytestmark = pytest.mark.usefixtures("reference_compile_cache")
 
 # one side per package: (engine, request, simulator module, planner module,
 # latency model, extra engine kwargs)

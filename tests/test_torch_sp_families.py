@@ -53,6 +53,7 @@ from repro_torch.models.transformer import forward as t_forward
 from repro_torch.serving.engine import ServingEngine as TEngine
 from repro_torch.serving.request import Request as TRequest
 from test_torch_engine import _two_chunk
+from port_fixtures import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5          # fp32 on both sides, one softmax vs merged partials
 SSD_ATOL = 2e-4      # the reference's own (dist_progs/ring_attention_prog)

@@ -56,23 +56,11 @@ from repro_torch.training.data import make_pipeline
 from repro_torch.training.optimizer import AdamW, AdamWState, tree_map
 from repro_torch.training.train_loop import (Trainer, loss_fn,
                                              make_train_step, trainable)
+from port_fixtures import one_torch_thread  # noqa: F401
 
 GRAD_ARCHS = ["llama3-8b", "mamba2-1.3b", "qwen2-moe-a2.7b",
               "whisper-medium"]
 B, S = 2, 24
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this module's torch work.  A train step is
-    many small ops; with the suite's files spread over parallel worker
-    processes, each worker's torch threads oversubscribe the cores and
-    those ops stall (40 Trainer steps: 4 s on one thread, 357 s on all of
-    them beside five other workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bridged(reduced_params_cache, name):
