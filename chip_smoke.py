@@ -147,12 +147,35 @@ Phases, each printing JSON lines:
                forward, backward and AdamW (and the kernels and the plain
                vector-Jacobian products inside), and K3 at the train shape
                forward and forward + backward beside the plain version
-               and ``scaled_dot_product_attention``.
+               and ``scaled_dot_product_attention``; each step's ``mfu``
+               (``launch.roofline.model_flops`` over its time);
+  8. roofline — the reference's step shapes through
+               ``launch/steps.build_step`` at published widths, each
+               global batch cut to fit 80 GB (the cut printed):
+               Llama-3-8B's prefill_32k (one 32768-token sequence, K3 a
+               layer), decode_32k (8 sequences at position 32767 over
+               34.4 GB of KV, K4 a layer) and long_500k under
+               ``ring_cache`` (position 524,287 over the 4096-token
+               window, K4 a layer), Mamba-2-1.3B's prefill_32k (K5 a
+               layer) and long_500k (no kernel).  Each step: device ms
+               (CUDA events, warm, median of 3), ``model_flops`` and the
+               dry run's counted flops and bytes of the same cut shape,
+               the roofline terms on the H100's peaks, the bottleneck and
+               ``mfu``; the bytes the card holds before the step within
+               1% of the dry run's argument bytes and the peak beside the
+               dry run's; launches exactly as predicted; Llama's K3
+               (first and last layer, against ``ref_blocked``) and K4
+               calls (every layer) held per call in one more run, V one
+               key off and half the keys dropped planted there and
+               rejected; Llama's logits (and Mamba's prefill's) held to
+               the plain path's (``impl="ref_blocked"`` for the 32k
+               prefill, ``"ref"`` otherwise).  The whole smoke prints
+               each phase's seconds before the kernel table.
 
 The second-to-last lines are the kernel table (JSON) and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check exits nonzero before that line.  ``--only PHASE ...`` runs a
-subset; with no arguments phases 1-7 (3b-3e included) run.
+subset; with no arguments phases 1-8 (3b-3e included) run.
 ``--only profile`` adds a torch.profiler breakdown of one full-width
 prefill chunk and one decode tick of each served model and of Whisper
 (kernel time by group and by aten op, on Qwen by MoE stage, and the
@@ -228,7 +251,12 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
          # through SSDScanFn under remat (Mamba-2); the backward is the
          # plain versions' vector-Jacobian product, no kernel
          "train_llama": {"flash_attention"},
-         "train_mamba": {"ssd_scan"}}
+         "train_mamba": {"ssd_scan"},
+         # the reference's step shapes (launch/steps.build_step): Llama's
+         # prefill_32k through K3, decode_32k and long_500k through K4;
+         # Mamba-2's prefill_32k through K5 (its long_500k tick is plain)
+         "roofline_llama": {"flash_attention", "flash_decode"},
+         "roofline_mamba": {"ssd_scan"}}
 # the served attention models whose replay holds each K1-K3 call to its
 # plain version (attn_call_gate)
 ATTN_GATED = ("serve_moe", "serve_chatglm", "serve_nemotron")
@@ -1287,17 +1315,45 @@ def whisper_gate_plan(n_enc: int, n_layers: int):
              "flash_decode": (0, 1, 2 * n_layers - 1)})
 
 
-def attn_call_gate(run, want_calls: dict, keep: dict):
+def _v_one_key_off(name, ins):
+    """V one key off: in a dense chunk along the keys, in a pool along
+    each page's slots."""
+    return (*ins[:2], ins[2].roll(1, 1), *ins[3:])
+
+
+def _half_keys_dropped(name, ins):
+    """The second half of the keys dropped: K3's keys themselves, each K4
+    row's length halved."""
+    if name == "flash_attention":
+        q, k, v, q_pos, kv_pos = ins[:5]
+        n = k.shape[1] // 2
+        return (q, k[:, :n], v[:, :n], q_pos, kv_pos[..., :n], *ins[5:])
+    if name == "flash_decode":
+        return (*ins[:3], ins[3] // 2, *ins[4:])
+    raise ValueError(f"no half-keys fault for {name}")
+
+
+# faults planted in an attention call's inputs (as its plain version
+# takes them), which attn_call_gate's check must reject
+ATTN_FAULTS = {"v_one_key_off": _v_one_key_off,
+               "half_keys_dropped": _half_keys_dropped}
+
+
+def attn_call_gate(run, want_calls: dict, keep: dict, *, held=None,
+                   plain_fns=None, faults=("v_one_key_off",)):
     """Run ``run()``, a kernel-path replay of a bf16 attention model, with
     each call of the kernels named in ``want_calls`` (K1-K4) also held to
     its plain version on the same inputs (that layer's activations, the
     pools as the call found them) under ``KERNEL_TOL``'s bf16 check; the
     kernels' outputs go on unchanged.  ``want_calls`` says how many calls
     of each kernel the replay makes; the calls whose indices ``keep``
-    lists keep their inputs, and the check must reject V one key off
-    planted there (``paged_gate_plan``, ``whisper_gate_plan``).  Returns
-    (``run()``'s result, a report whose ``ok`` says whether every call
-    passed and every planted fault was rejected)."""
+    lists keep their inputs, and the check must reject each of ``faults``
+    (``ATTN_FAULTS``) planted there (``paged_gate_plan``,
+    ``whisper_gate_plan``).  ``held`` ({kernel: call indices}) holds only
+    those calls (default: every call); ``plain_fns`` ({kernel: fn})
+    replaces a kernel's plain version (one whose scores would not fit).
+    Returns (``run()``'s result, a report whose ``ok`` says whether every
+    held call passed and every planted fault was rejected)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (
         flash_attention_plain, paged_flash_prefill_plain)
@@ -1307,9 +1363,10 @@ def attn_call_gate(run, want_calls: dict, keep: dict):
               "paged_flash_prefill": paged_flash_prefill_plain,
               "paged_flash_decode": paged_flash_decode_plain,
               "flash_decode": flash_decode_plain}
-    plains = {n: plains[n] for n in want_calls}
+    plains = {n: (plain_fns or {}).get(n, plains[n]) for n in want_calls}
     kernels = {n: getattr(ops, n) for n in plains}
     calls = {n: [] for n in plains}
+    seen = {n: 0 for n in plains}
     kept = {}
     tol = KERNEL_TOL["bfloat16"]
 
@@ -1319,6 +1376,10 @@ def attn_call_gate(run, want_calls: dict, keep: dict):
 
     def recorder(name):
         def call(*args, **kw):
+            i = seen[name]
+            seen[name] += 1
+            if held is not None and i not in held[name]:
+                return kernels[name](*args, **kw)
             ins = args
             if name == "paged_flash_decode":
                 # the fused append writes the pools in place: the plain
@@ -1326,8 +1387,8 @@ def attn_call_gate(run, want_calls: dict, keep: dict):
                 ins = (args[0], args[1].clone(), args[2].clone()) + args[3:]
             got = kernels[name](*args, **kw)
             want = plains[name](*ins, **kw)
-            if len(calls[name]) in keep[name]:
-                kept[(name, len(calls[name]))] = (ins, kw, want)
+            if i in keep[name]:
+                kept[(name, i)] = (ins, kw, want)
             calls[name].append(ratios(got, want))
             return got
         return call
@@ -1342,24 +1403,29 @@ def attn_call_gate(run, want_calls: dict, keep: dict):
 
     report = {}
     for name, rs in calls.items():
-        report[name] = {"calls": len(rs)}
+        report[name] = {"calls": seen[name], "held": len(rs)}
         for k in ("o", "lse") if rs else ():
             i = max(range(len(rs)), key=lambda i: rs[i][k])
             report[name][f"worst_{k}"] = {"ratio": rs[i][k], "call": i}
     planted = {}
-    for (name, i), (ins, kw, want) in kept.items():
-        # V one key off: in a dense chunk along the keys, in a pool along
-        # each page's slots
-        bad = plains[name](*ins[:2], ins[2].roll(1, 1), *ins[3:], **kw)
-        planted[f"{name}_call{i}"] = close_ratio(bad[0], want[0],
-                                                 tol["atol"], tol["rtol"])
-    report["planted_v_one_key_off"] = planted
+    for fault in faults:
+        planted[fault] = {}
+        for (name, i), (ins, kw, want) in kept.items():
+            bad = plains[name](*ATTN_FAULTS[fault](name, ins), **kw)
+            planted[fault][f"{name}_call{i}"] = close_ratio(
+                bad[0], want[0], tol["atol"], tol["rtol"])
+            del bad
+        report[f"planted_{fault}"] = planted[fault]
+    n_held = {n: want_calls[n] if held is None else len(held[n])
+              for n in want_calls}
     report["ok"] = (
-        {n: len(rs) for n, rs in calls.items()} == want_calls
+        seen == want_calls
+        and {n: len(rs) for n, rs in calls.items()} == n_held
         and all(r[k] <= 1.0 for rs in calls.values() for r in rs
                 for k in r)
-        and len(planted) == sum(len(v) for v in keep.values())
-        and all(v > 1.0 for v in planted.values()))
+        and all(len(p) == sum(len(v) for v in keep.values())
+                and all(v > 1.0 for v in p.values())
+                for p in planted.values()))
     return out, report
 
 
@@ -4256,10 +4322,17 @@ def _train_model(arch: str, cfg, ctx, seq: int, steps: int, path: str,
     k, p = runs["cuda"], runs["ref"]
     rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
     kernel = "flash_attention" if cfg.ssm is None else "ssd_scan"
+    from repro_torch.launch import roofline
+    from repro_torch.models.config import InputShape
+    # the step's useful flops at its cut shape over its measured time
+    mf = roofline.model_flops(cfg, InputShape(f"train_{seq}", seq, 1,
+                                              "train"))
     emit(phase="train", model=cfg.name, layers=cfg.n_layers, seq=seq,
          batch=1, steps=steps, remat=ctx.remat, optimizer=TRAIN_OPT,
          kernel_path=k, plain_path=p, loss_rel_vs_plain=rel,
-         launches_predicted={kernel: want}, step_split=split)
+         launches_predicted={kernel: want}, step_split=split,
+         model_flops=mf, mfu=mf / (k["median_step_ms_after_first"] / 1e3
+                                   * roofline.PEAK_FLOPS))
     _check_launches(k["launches"], path)
     check(k["launches"][kernel] == want,
           f"train {arch}: {kernel} launched {k['launches'][kernel]}, "
@@ -4306,6 +4379,208 @@ def phase_train() -> dict:
     check(times["o_ratio"] <= 1.0,
           f"train: K3 at the train shape disagrees: {times['o_ratio']}")
     _free()
+    return out
+
+
+# ------------------------------------------------------- phase 8: roofline
+ROOFLINE_BUDGET_S = 90
+# the reference's step shapes on one card: (arch, shape, variant, batch on
+# the card, why the reference's global batch was cut, kernel launches a
+# step); the plain path each step's logits are held to
+ROOFLINE_STEPS = (
+    ("llama3-8b", "prefill_32k", "", 1,
+     "32 sequences of 32768 tokens: 16 GB of weights beside 32 x 4.3 GB "
+     "of KV written by the step; one sequence's layer activations (an "
+     "FFN intermediate is 0.94 GB) set the peak",
+     {"flash_attention": 32}, "ref_blocked"),
+    ("llama3-8b", "decode_32k", "", 8,
+     "128 x 32768 x 131,072 B = 550 GB of KV; 8 sequences hold 34.4 GB "
+     "beside 16 GB of weights", {"flash_decode": 32}, "ref"),
+    ("llama3-8b", "long_500k", "ring_cache", 1, None,
+     {"flash_decode": 32}, "ref"),
+    ("mamba2-1.3b", "prefill_32k", "", 1,
+     "32 sequences cut to 1, as Llama's", {"ssd_scan": 48}, "ref"),
+    ("mamba2-1.3b", "long_500k", "", 1, None, {}, None),
+)
+
+
+def _roofline_gate(cfg, want: dict):
+    """``attn_call_gate``'s plan for a roofline step of an attention
+    model, or None: the first and the last layer's K3 calls held to
+    ``ref_blocked`` (a 32k-token prefill's whole score matrix would not
+    fit), every K4 call to its plain version; V one key off and the
+    second half of the keys dropped planted in the first and the last
+    layer's calls.  At 32,768 random keys a layer's attention output is a
+    few hundredths, so the logits alone cannot see a wrong K3 or K4."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import _zero_dead_rows
+    ends = (0, cfg.n_layers - 1)
+    faults = tuple(ATTN_FAULTS)
+    if "flash_attention" in want:
+        def k3_blocked(q, k, v, q_pos, kv_pos, **kw):
+            o, lse = ref.attention_ref_blocked(q, k, v, q_pos, kv_pos,
+                                               with_lse=True, **kw)
+            return _zero_dead_rows(o, lse), lse
+        return (want, {"flash_attention": ends},
+                dict(held={"flash_attention": ends},
+                     plain_fns={"flash_attention": k3_blocked},
+                     faults=faults))
+    if "flash_decode" in want:
+        return want, {"flash_decode": ends}, dict(faults=faults)
+    return None
+
+
+def _roofline_step(arch, sn, variant, batch, why, want, plain) -> dict:
+    """One step of ``launch.steps.build_step`` on the card at ``batch``
+    sequences: the dry run's counts of the same cut shape on the meta
+    device, the bytes the card holds before the step beside the dry
+    run's argument bytes, the launches of one run, the median of three
+    warm runs by CUDA events, the peak beside the dry run's, the roofline
+    terms on the H100's peaks and ``mfu``; one more kernel-path run with
+    its attention calls held per call (``_roofline_gate``); the logits
+    held to ``plain``'s (None: the step has no kernel).  Returns the
+    step's launch counts."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step, data_values, make_args
+    from repro_torch.models.config import INPUT_SHAPES
+    t0 = time.time()
+    cfg = get_config(arch)
+    full = INPUT_SHAPES[sn]
+    shape = dataclasses.replace(full, global_batch=batch)
+    ov = dryrun.VARIANTS[variant]
+    axes = ("data", "model")
+    dry = dryrun.step_record(cfg, shape, make_mesh((1, 1), axes, "meta"), ov)
+    t_dry = time.time() - t0
+    mesh = make_mesh((1, 1), axes, "cuda")
+    _free()
+    base = torch.cuda.memory_allocated()
+    fn, place, abstract = build_step(cfg, shape, mesh, ctx_overrides=ov)
+    args, _ = make_args(cfg, shape, abstract, place, mesh, seed=0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        _reset_counts()
+        logits, caches = fn(*args)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        del caches
+        ms = []
+        for _ in range(3):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn(*args)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated() - base
+    t_run = time.time() - t0 - t_dry
+    step_ms = sorted(ms)[1]
+    mf = roofline.model_flops(cfg, shape)
+    roof = roofline.analyse(arch, shape, "1x1", 1, cfg,
+                            {"flops": dry["flops"],
+                             "bytes accessed": dry["bytes accessed"]},
+                            peak_mem=dry["argument_bytes"]
+                            + dry["temp_bytes"])
+    # the least time of the step: its useful flops at the peak, or its
+    # arguments (weights, caches) read once at the HBM rate
+    least_ms = 1e3 * max(mf / roofline.PEAK_FLOPS,
+                         dry["argument_bytes"] / roofline.HBM_BW)
+    rec = dict(
+        phase="roofline", model=cfg.name, step=sn, variant=variant,
+        batch={"reference": full.global_batch, "card": batch, "why": why},
+        seq_len=shape.seq_len, data_values=data_values(shape),
+        device_ms={"median_of_3": step_ms, "runs": ms},
+        model_flops=mf, counted={
+            "flops": dry["flops"], "bytes": dry["bytes accessed"],
+            "path": f"impl={dryrun.COUNTED_IMPL!r}, unfused aten ops"},
+        roofline_s={"compute": roof.compute_s, "memory": roof.memory_s,
+                    "memory_adj": roof.memory_adj_s},
+        bottleneck=roof.bottleneck, bottleneck_counted=roof.bottleneck_hlo,
+        useful_ratio=roof.useful_ratio, least_ms=least_ms,
+        share_of_least=least_ms / step_ms,
+        mfu=mf / (step_ms / 1e3 * roofline.PEAK_FLOPS),
+        bytes_held={"card": held, "dry_run_arguments":
+                    dry["argument_bytes"],
+                    "rel": held / dry["argument_bytes"] - 1},
+        peak_bytes={"card_above_start": peak, "dry_run_arguments_plus_temp":
+                    dry["argument_bytes"] + dry["temp_bytes"]},
+        launches=counts, launches_predicted=want,
+        seconds={"dry_run": t_dry, "card": t_run})
+    check(all(counts[k] == n for k, n in want.items())
+          and not any(c for k, c in counts.items() if k not in want),
+          f"roofline {arch} {sn}: launches {counts}, predicted {want}")
+    check(abs(held / dry["argument_bytes"] - 1) <= 0.01,
+          f"roofline {arch} {sn}: the card holds {held} B before the "
+          f"step, the dry run places {dry['argument_bytes']} B")
+    lg = logits.float().reshape(-1, logits.shape[-1])
+    check(tuple(logits.shape) == (batch, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(lg).all()),
+          f"roofline {arch} {sn}: logits {tuple(logits.shape)} not finite "
+          "or of the wrong shape")
+    plan = _roofline_gate(cfg, want)
+    gate = None
+    if plan is not None:
+        t1 = time.time()
+        with torch.no_grad():
+            _, gate = attn_call_gate(lambda: fn(*args), *plan[:2], **plan[2])
+            torch.cuda.synchronize()
+        rec["call_gate"] = gate
+        rec["seconds"]["gate"] = time.time() - t1
+    if plain is not None:
+        t1 = time.time()
+        fp, _, _ = build_step(cfg, shape, mesh, impl=plain,
+                              ctx_overrides=ov)
+        with torch.no_grad():
+            _reset_counts()
+            want_logits, _ = fp(*args)
+            torch.cuda.synchronize()
+            check(not any(_read_counts().values()),
+                  f"roofline {arch} {sn}: the plain path launched kernels")
+        rec["seconds"]["plain"] = time.time() - t1
+        emit(**rec)
+        wl = want_logits.float().reshape(-1, logits.shape[-1])
+        _logits_vs_plain(f"roofline {cfg.name} {sn} vs impl={plain}",
+                         [f"row{i}" for i in range(len(lg))], list(lg),
+                         list(wl), LOGIT_TOL[arch])
+        del want_logits
+    else:
+        emit(**rec)
+    check(gate is None or gate["ok"],
+          f"roofline {arch} {sn}: an attention call disagrees with its "
+          "plain version, or a planted fault passed")
+    del args, logits
+    _free()
+    return counts
+
+
+def phase_roofline() -> dict:
+    """The reference's step shapes (``launch/steps.build_step``) on the
+    card at published widths, each global batch cut to fit 80 GB:
+    Llama-3-8B's prefill_32k (K3 over 32768 causal keys a layer),
+    decode_32k (K4 a layer) and long_500k under ``ring_cache`` (K4 over
+    the 4096-token window at position 524,287), Mamba-2-1.3B's
+    prefill_32k (K5 a layer) and long_500k (the one-token SSD step is
+    plain, as in the reference).  Each step's time, counts and roofline
+    terms (``_roofline_step``); Llama's logits and Mamba's prefill's are
+    held to the plain path's.  Returns the launch counts by path."""
+    t0 = time.time()
+    emit(phase="roofline", budget_s=ROOFLINE_BUDGET_S,
+         steps=[s[:4] for s in ROOFLINE_STEPS])
+    out = {"roofline_llama": {}, "roofline_mamba": {}}
+    for step in ROOFLINE_STEPS:
+        counts = _roofline_step(*step)
+        path = "roofline_llama" if step[0] == "llama3-8b" \
+            else "roofline_mamba"
+        for k, c in counts.items():
+            out[path][k] = out[path].get(k, 0) + c
+    for path, counts in out.items():
+        _check_launches(counts, path)
+    emit(phase="roofline", seconds=time.time() - t0,
+         budget_s=ROOFLINE_BUDGET_S)
     return out
 
 
@@ -4575,11 +4850,12 @@ def main(argv=None) -> int:
                     choices=["device", "kernels", "serve", "serve_sp",
                              "serve_elastic", "serve_tiers", "sp_families",
                              "dense", "whisper", "tokens", "train",
-                             "profile"])
+                             "roofline", "profile"])
     args = ap.parse_args(argv)
     phases = args.only or ["device", "kernels", "serve", "serve_sp",
                            "serve_elastic", "serve_tiers", "sp_families",
-                           "dense", "whisper", "tokens", "train"]
+                           "dense", "whisper", "tokens", "train",
+                           "roofline"]
 
     import torch
     if not torch.cuda.is_available():
@@ -4590,27 +4866,38 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_device()
-    rows = phase_kernels() if "kernels" in phases else {}
-    by_path = phase_serve() if "serve" in phases else {}
+    t_start = time.time()
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.time()
+        out = fn()
+        seconds[name] = time.time() - t0
+        return out
+
+    smi = timed("device", phase_device)
+    rows = timed("kernels", phase_kernels) if "kernels" in phases else {}
+    by_path = timed("serve", phase_serve) if "serve" in phases else {}
     if "serve_sp" in phases:
-        by_path["serve_sp"] = phase_serve_sp()
-    if "serve_elastic" in phases:
-        by_path.update(phase_serve_elastic())
-    if "serve_tiers" in phases:
-        by_path.update(phase_serve_tiers())
-    if "sp_families" in phases:
-        by_path.update(phase_sp_families())
+        by_path["serve_sp"] = timed("serve_sp", phase_serve_sp)
+    for name, fn in (("serve_elastic", phase_serve_elastic),
+                     ("serve_tiers", phase_serve_tiers),
+                     ("sp_families", phase_sp_families)):
+        if name in phases:
+            by_path.update(timed(name, fn))
     if "dense" in phases:
-        by_path["dense"] = phase_dense()
+        by_path["dense"] = timed("dense", phase_dense)
     if "whisper" in phases:
-        by_path["whisper"] = phase_whisper()
+        by_path["whisper"] = timed("whisper", phase_whisper)
     if "tokens" in phases:
-        phase_tokens()
-    if "train" in phases:
-        by_path.update(phase_train())
+        timed("tokens", phase_tokens)
+    for name, fn in (("train", phase_train), ("roofline", phase_roofline)):
+        if name in phases:
+            by_path.update(timed(name, fn))
     if "profile" in phases:
-        phase_profile()
+        timed("profile", phase_profile)
+    emit(phase="smoke", seconds_by_phase=seconds,
+         seconds=time.time() - t_start)
     table = []
     for name, (src, repl) in SOURCES.items():
         r = rows.get(name, {})

@@ -63,8 +63,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import INT32_MAX
 from repro_torch.kernels.ref import NEG_INF, _broadcast_pos
-from repro_torch.launch.mesh import (all_gather, head_part, head_stripes,
-                                     ring_shift, split, to, unsplit)
+from repro_torch.launch.mesh import (all_gather, at, head_part,
+                                     head_stripes, ring_shift, split, to,
+                                     unsplit)
 
 
 def _lines(mesh, axis: str, head_axis: Optional[str]
@@ -145,12 +146,13 @@ def _ring(q, q_pos, sources, *, devices: Sequence[torch.device],
     parts = [(list(k), list(v), list(p), c) for k, v, p, c in sources]
     for step in range(n):
         for i in range(n):
-            for k_c, v_c, p_c, c in parts:
-                o_i, lse_i = ops.attention(q[i], k_c[i], v_c[i], q_pos[i],
-                                           p_c[i], causal=c, window=window,
-                                           softmax_scale=softmax_scale,
-                                           with_lse=True, impl=impl)
-                acc[i] = _merge(*acc[i], o_i, lse_i)
+            with at(devices, i):
+                for k_c, v_c, p_c, c in parts:
+                    o_i, lse_i = ops.attention(
+                        q[i], k_c[i], v_c[i], q_pos[i], p_c[i], causal=c,
+                        window=window, softmax_scale=softmax_scale,
+                        with_lse=True, impl=impl)
+                    acc[i] = _merge(*acc[i], o_i, lse_i)
         if step != n - 1:
             parts = [(ring_shift(k_c, devices), ring_shift(v_c, devices),
                       ring_shift(p_c, devices), c)
@@ -227,27 +229,31 @@ def _ring_zigzag_skip(q, k, v, q_pos, kv_pos, *,
     qh = [(_halves(q[i]), _halves(q_pos[i])) for i in range(n)]
     acc = [{"e": _init(qe), "l": _init(ql)} for (qe, ql), _ in qh]
     k_c, v_c, p_c = list(k), list(v), list(kv_pos)
+    def step(t, d):
+        a = acc[d]
+        if t == 0:
+            o_i, lse_i = attend(q[d], q_pos[d], k_c[d], v_c[d], p_c[d])
+            oe, ol = _halves(o_i)
+            le, ll = _halves(lse_i, 2)
+            a["e"] = _merge(*a["e"], oe, le)
+            a["l"] = _merge(*a["l"], ol, ll)
+            return
+        (q_e, q_l), (qp_e, qp_l) = qh[d]
+        k_e, k_l = _halves(k_c[d])
+        v_e, v_l = _halves(v_c[d])
+        kp_e, kp_l = _halves(p_c[d])
+        # A: q_late x kv_early, always fully visible
+        a["l"] = _merge(*a["l"], *attend(q_l, qp_l, k_e, v_e, kp_e))
+        # B: (q_early x kv_early) if j < d else (q_late x kv_late)
+        if (d - t) % n < d:
+            a["e"] = _merge(*a["e"], *attend(q_e, qp_e, k_e, v_e, kp_e))
+        else:
+            a["l"] = _merge(*a["l"], *attend(q_l, qp_l, k_l, v_l, kp_l))
+
     for t in range(n):
         for d in range(n):
-            a = acc[d]
-            if t == 0:
-                o_i, lse_i = attend(q[d], q_pos[d], k_c[d], v_c[d], p_c[d])
-                oe, ol = _halves(o_i)
-                le, ll = _halves(lse_i, 2)
-                a["e"] = _merge(*a["e"], oe, le)
-                a["l"] = _merge(*a["l"], ol, ll)
-                continue
-            (q_e, q_l), (qp_e, qp_l) = qh[d]
-            k_e, k_l = _halves(k_c[d])
-            v_e, v_l = _halves(v_c[d])
-            kp_e, kp_l = _halves(p_c[d])
-            # A: q_late x kv_early, always fully visible
-            a["l"] = _merge(*a["l"], *attend(q_l, qp_l, k_e, v_e, kp_e))
-            # B: (q_early x kv_early) if j < d else (q_late x kv_late)
-            if (d - t) % n < d:
-                a["e"] = _merge(*a["e"], *attend(q_e, qp_e, k_e, v_e, kp_e))
-            else:
-                a["l"] = _merge(*a["l"], *attend(q_l, qp_l, k_l, v_l, kp_l))
+            with at(devices, d):
+                step(t, d)
         if t != n - 1:
             k_c, v_c, p_c = (ring_shift(x, devices) for x in (k_c, v_c, p_c))
     return ([torch.cat([a["e"][0], a["l"][0]], dim=1).to(qi.dtype)
@@ -425,12 +431,13 @@ def sharded_paged_decode(q, k_pool, v_pool, block_tables, lengths, *,
                                                   1).contiguous()
         parts = []
         for idx, dev in enumerate(devices):
-            parts.append(sharded_paged_decode_local(
-                to(q_t, dev), kp[idx], vp[idx], to(block_tables[idx], dev),
-                to(lengths, dev), n=n, idx=idx, window=window,
-                softmax_scale=softmax_scale, impl=impl,
-                k_new=None if kn is None else to(kn, dev),
-                v_new=None if vn is None else to(vn, dev)))
+            with at(devices, idx):
+                parts.append(sharded_paged_decode_local(
+                    to(q_t, dev), kp[idx], vp[idx],
+                    to(block_tables[idx], dev), to(lengths, dev), n=n,
+                    idx=idx, window=window, softmax_scale=softmax_scale,
+                    impl=impl, k_new=None if kn is None else to(kn, dev),
+                    v_new=None if vn is None else to(vn, dev)))
         outs.append(_lse_merge_over_axis([p[0] for p in parts],
                                          [p[1] for p in parts], q.device))
     return torch.cat(outs, dim=1).to(q.dtype), k_pool, v_pool
@@ -471,10 +478,13 @@ def ring_paged_prefill_local(q, k, v, q_pos, kv_pos, k_pool, v_pool, bt,
         k, v, k_pool, v_pool = _read_heads(q, k, v, head_shard,
                                            (k_pool, v_pool))
     n_hist = n if active_shards is None else active_shards
-    slabs = [tuple(to(x, devices[i]) for x in _local_page_slab(
-        k_pool[i], v_pool[i], bt[i],
-        hist_len[i] if i < n_hist else torch.zeros_like(hist_len[i]),
-        n_hist, i)) for i in range(n)]
+    slabs = []
+    for i in range(n):
+        with at(devices, i):
+            slabs.append(tuple(to(x, devices[i]) for x in _local_page_slab(
+                k_pool[i], v_pool[i], bt[i],
+                hist_len[i] if i < n_hist else torch.zeros_like(hist_len[i]),
+                n_hist, i)))
     hist = tuple(list(x) for x in zip(*slabs))
     del slabs
     return _ring(q, q_pos, [(k, v, kv_pos, causal), (*hist, True)],
@@ -547,16 +557,35 @@ def _shards(cache, devices: Sequence[torch.device]) -> List[torch.Tensor]:
     return list(cache)
 
 
-def _owner_write(k_loc, v_loc, k_new, v_new, positions, idx: int) -> None:
-    """Write one token's K/V a row into shard ``idx`` of a sequence-
-    sharded cache, in place, for the rows whose global position falls in
-    the shard (reference ``sharded_cache_update``'s body)."""
-    s_loc = k_loc.shape[1]
-    local = positions.long() - idx * s_loc
-    rows = torch.nonzero((local >= 0) & (local < s_loc)).flatten()
-    if rows.numel():
-        k_loc[rows, local[rows]] = k_new[rows].to(k_loc.dtype)
-        v_loc[rows, local[rows]] = v_new[rows].to(v_loc.dtype)
+def _owner_writes(ks, vs, k_new, v_new, positions,
+                  devices: Sequence[torch.device]) -> None:
+    """Write one token's K/V a row, in place, into the shard of a
+    sequence-sharded cache (``ks``/``vs``, shard i on ``devices[i]``)
+    that owns the row's global position (reference
+    ``sharded_cache_update``'s body).  On a device the owning shards are
+    read back once (a few bytes), and only they write, only their rows.
+    On ``meta`` tensors, which hold no values (the dry run), every shard
+    writes every row by a select, as the reference does: a row a shard
+    does not own writes its clamped slot's own value back."""
+    n, s_loc = len(devices), ks[0].shape[1]
+    local = positions.long()[None] - s_loc * torch.arange(
+        n, device=positions.device)[:, None]                 # (n, B)
+    mine = (local >= 0) & (local < s_loc)
+    slot = local.clamp(0, s_loc - 1)
+    select = positions.is_meta
+    owners = (range(n) if select
+              else mine.any(dim=1).nonzero().flatten().tolist())
+    for i in owners:
+        d = devices[i]
+        with at(devices, i):
+            m, sl = to(mine[i], d), to(slot[i], d)
+            rows = (torch.arange(len(sl), device=d) if select
+                    else torch.nonzero(m).flatten())
+            for cache, new in ((ks[i], k_new), (vs[i], v_new)):
+                new = to(new, d)[rows].to(cache.dtype)
+                if select:
+                    new = torch.where(m[:, None, None], new, cache[rows, sl])
+                cache[rows, sl[rows]] = new
 
 
 def split_kv_decode_local(q, k_loc, v_loc, lengths, *, idx: int,
@@ -595,14 +624,14 @@ def split_kv_decode(q, k_cache, v_cache, lengths, *, mesh, split_axis,
     devices = mesh.positions(split_axis)
     ks, vs = _shards(k_cache, devices), _shards(v_cache, devices)
     if k_new is not None:
-        for i, d in enumerate(devices):
-            _owner_write(ks[i], vs[i], to(k_new, d), to(v_new, d),
-                         to(lengths, d), i)
+        _owner_writes(ks, vs, k_new, v_new, lengths, devices)
         lengths = lengths + 1
-    parts = [split_kv_decode_local(to(q, d), ks[i], vs[i], to(lengths, d),
-                                   idx=i, window=window,
-                                   softmax_scale=softmax_scale, impl=impl)
-             for i, d in enumerate(devices)]
+    parts = []
+    for i, d in enumerate(devices):
+        with at(devices, i):
+            parts.append(split_kv_decode_local(
+                to(q, d), ks[i], vs[i], to(lengths, d), idx=i,
+                window=window, softmax_scale=softmax_scale, impl=impl))
     o = _lse_merge_over_axis([p[0] for p in parts], [p[1] for p in parts],
                              q.device).to(q.dtype)
     return o, k_cache, v_cache
@@ -616,9 +645,7 @@ def sharded_cache_update(k_cache, v_cache, k_new, v_new, positions, *,
     ``split_kv_decode``.  Returns (k_cache, v_cache)."""
     devices = mesh.positions(split_axis)
     ks, vs = _shards(k_cache, devices), _shards(v_cache, devices)
-    for i, d in enumerate(devices):
-        _owner_write(ks[i], vs[i], to(k_new, d), to(v_new, d),
-                     to(positions, d), i)
+    _owner_writes(ks, vs, k_new, v_new, positions, devices)
     return k_cache, v_cache
 
 
@@ -653,30 +680,33 @@ def sp_ssd_local(x, dt, A, Bm, Cm, *, devices: Sequence[torch.device],
     G = Bm[0].shape[2]
     outs, h_in, d_excl = [], None, None
     for i in range(n):
-        dev = devices[i]
-        y0, s_loc = ops.ssd(x[i], dt[i], to(A, dev), Bm[i], Cm[i], h0=None,
-                            chunk=chunk, impl=impl)
-        a = dt[i].float() * to(A, dev).float()[None, None, :]    # (B,S,H)
-        d_loc = torch.exp(a.sum(dim=1))                           # (B,H)
-        hi = (torch.zeros_like(s_loc) if h_in is None else to(h_in, dev))
-        if h0 is not None:
-            de = (torch.ones_like(d_loc) if d_excl is None
-                  else to(d_excl, dev))
-            hi = hi + to(h0, dev).float() * de[..., None, None]
-        rep = x[i].shape[2] // G
-        Cf = torch.repeat_interleave(Cm[i].float(), rep, dim=2)   # (B,S,H,N)
-        a_cum = torch.cumsum(a, dim=1)
-        y_corr = torch.einsum("bshn,bsh,bhpn->bshp", Cf, torch.exp(a_cum),
-                              hi)
-        outs.append(((y0.float() + y_corr).to(x[i].dtype),
-                     hi * d_loc[..., None, None] + s_loc))
-        # the prefix of summaries 0..i, without h0 (reference: the
-        # inclusive scan over (d, s))
-        if h_in is None:
-            d_excl, h_in = d_loc, s_loc
-        else:
-            d_excl, h_in = _ssd_scan_combine(
-                (to(d_excl, dev), to(h_in, dev)), (d_loc, s_loc))
+        with at(devices, i):
+            dev = devices[i]
+            y0, s_loc = ops.ssd(x[i], dt[i], to(A, dev), Bm[i], Cm[i],
+                                h0=None, chunk=chunk, impl=impl)
+            a = dt[i].float() * to(A, dev).float()[None, None, :]  # (B,S,H)
+            d_loc = torch.exp(a.sum(dim=1))                         # (B,H)
+            hi = (torch.zeros_like(s_loc) if h_in is None
+                  else to(h_in, dev))
+            if h0 is not None:
+                de = (torch.ones_like(d_loc) if d_excl is None
+                      else to(d_excl, dev))
+                hi = hi + to(h0, dev).float() * de[..., None, None]
+            rep = x[i].shape[2] // G
+            Cf = torch.repeat_interleave(Cm[i].float(), rep,
+                                         dim=2)                 # (B,S,H,N)
+            a_cum = torch.cumsum(a, dim=1)
+            y_corr = torch.einsum("bshn,bsh,bhpn->bshp", Cf,
+                                  torch.exp(a_cum), hi)
+            outs.append(((y0.float() + y_corr).to(x[i].dtype),
+                         hi * d_loc[..., None, None] + s_loc))
+            # the prefix of summaries 0..i, without h0 (reference: the
+            # inclusive scan over (d, s))
+            if h_in is None:
+                d_excl, h_in = d_loc, s_loc
+            else:
+                d_excl, h_in = _ssd_scan_combine(
+                    (to(d_excl, dev), to(h_in, dev)), (d_loc, s_loc))
     return [o[0] for o in outs], [o[1] for o in outs]
 
 

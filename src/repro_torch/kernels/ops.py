@@ -3,7 +3,11 @@
 A CUDA tensor goes to its kernel (which raises if it cannot run); a CPU
 tensor goes to the plain PyTorch version in ``ref.py``, the same functions
 the reference runs with ``impl="ref"``.  ``impl="ref"`` picks the plain
-version on any device (the comparison runs of ``chip_smoke.py``).  Nothing
+version on any device (the comparison runs of ``chip_smoke.py``);
+``impl="ref_blocked"`` does too, with ``attention`` one block of queries
+at a time (``ref.attention_ref_blocked``, the plain path of a long
+prefill, whose whole score matrix would not fit; reference
+``ops.py:39``) and every other function as under ``"ref"``.  Nothing
 falls back from a kernel to the plain version.
 """
 
@@ -22,7 +26,7 @@ from repro_torch.kernels.flash_decode import (flash_decode,
                                               paged_flash_decode)
 from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan, ssd_scan_plain
 
-IMPLS = (None, "ref")
+IMPLS = (None, "ref", "ref_blocked")
 # position of a dead key: past every query, so the causal mask retires it
 INT32_MAX = 2 ** 31 - 1
 
@@ -37,6 +41,10 @@ def use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
 def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
               window: Optional[int] = None, softmax_scale=None,
               with_lse: bool = False, impl: Optional[str] = None):
+    if impl == "ref_blocked":
+        return _ref.attention_ref_blocked(
+            q, k, v, q_pos, kv_pos, causal=causal, window=window,
+            softmax_scale=softmax_scale, with_lse=with_lse)
     if not use_kernel(q, impl):
         return _ref.attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
                                   window=window, softmax_scale=softmax_scale,

@@ -83,6 +83,32 @@ def attention_ref(
     return out, lse.reshape(B, H, Sq)
 
 
+def attention_ref_blocked(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                          window: Optional[int] = None, kv_valid=None,
+                          softmax_scale: Optional[float] = None,
+                          with_lse: bool = False, block_q: int = 256):
+    """``attention_ref`` one block of ``block_q`` queries at a time
+    (reference ``ref.py:86``): the same numbers, row for row, with the
+    live logits bounded to one (block_q x Sk) tile a KV head group.  It
+    is the plain path wherever the (Sq x Sk) scores would not fit (a
+    32k-token prefill's would take 32 x 32768^2 x 4 B).  The reference
+    pads the last block with dead queries for ``lax.map``; here the last
+    block is just shorter, so no work is spent on padding."""
+    B, Sq = q.shape[:2]
+    q_pos = _broadcast_pos(q_pos, B)
+    outs, lses = [], []
+    for s in range(0, Sq, block_q):
+        e = min(s + block_q, Sq)
+        o, lse = attention_ref(q[:, s:e], k, v, q_pos[:, s:e], kv_pos,
+                               causal=causal, window=window,
+                               kv_valid=kv_valid,
+                               softmax_scale=softmax_scale, with_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    out = torch.cat(outs, dim=1)
+    return (out, torch.cat(lses, dim=2)) if with_lse else out
+
+
 def merge_partials(outs: List[torch.Tensor], lses: List[torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge partial attention results (o_i, lse_i) over disjoint KV sets.

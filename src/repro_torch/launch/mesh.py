@@ -34,18 +34,93 @@ runs a 4-position mesh as four logical positions on ``cuda:0``).
   head-sharded pool's stripe at each.
 
 Moving a part to a position is ``.to(device, non_blocking=True)``, a
-no-op when it is already there.  Nothing here sets a global mesh, and the
-reference's 16x16 production mesh is not ported.
+no-op when it is already there.  Nothing here sets a global mesh.
+
+* ``make_production_mesh`` — the reference's production meshes, (16, 16)
+  over ("data", "model") and, multi-pod, (2, 16, 16) over ("pod",
+  "data", "model"), every position on one device (``"meta"`` for the
+  dry run, ``launch/dryrun.py``, which allocates nothing).
+* Accounting for the dry run.  ``Mesh.positions`` returns a ``Line``,
+  which also carries each device's position number; an island's loop
+  runs each position's body under ``at(devices, i)``, so
+  ``current_position()`` names the position whose work runs now (several
+  positions may share one device, so a tensor's device cannot say).
+  Work outside every island is position 0's, where the port runs it.
+  Under ``recording_collectives()`` the collectives above append a
+  record (kind, result bytes on one position, group size) that
+  ``launch.roofline.collective_bytes`` turns into wire bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.models.sharding import ExecContext, resolve_device
+
+
+# the position whose work runs now, and the collectives' record (None:
+# not recording)
+_POSITION = contextvars.ContextVar("mesh_position", default=0)
+_COLLECTIVES = contextvars.ContextVar("mesh_collectives", default=None)
+
+
+class Line(tuple):
+    """The devices of one line of a mesh, in axis order; ``ids`` holds
+    each one's position number (row-major over the mesh's shape)."""
+
+    def __new__(cls, devices, ids):
+        line = super().__new__(cls, devices)
+        line.ids = tuple(ids)
+        return line
+
+
+def current_position() -> int:
+    """The position number whose work runs now (0 outside the
+    islands)."""
+    return _POSITION.get()
+
+
+@contextlib.contextmanager
+def at(devices: Sequence[torch.device], i: int):
+    """Run the body as position ``i`` of ``devices`` (a ``Line``; a plain
+    sequence of devices names no position and changes nothing)."""
+    ids = getattr(devices, "ids", None)
+    if ids is None:
+        yield
+        return
+    token = _POSITION.set(ids[i])
+    try:
+        yield
+    finally:
+        _POSITION.reset(token)
+
+
+@contextlib.contextmanager
+def recording_collectives():
+    """Collect a record of every collective run in the body: a list of
+    {"kind", "result_bytes" (on one position), "group"}."""
+    records: list = []
+    token = _COLLECTIVES.set(records)
+    try:
+        yield records
+    finally:
+        _COLLECTIVES.reset(token)
+
+
+def _record(kind: str, result_bytes: int, group: int) -> None:
+    records = _COLLECTIVES.get()
+    if records is not None and group > 1:
+        records.append({"kind": kind, "result_bytes": int(result_bytes),
+                        "group": group})
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 class Mesh:
@@ -68,7 +143,7 @@ class Mesh:
                              f"devices, got {len(self.devices)}")
         self.shape = dict(zip(self.axis_names, sizes))
 
-    def positions(self, axis, **at: int) -> Tuple[torch.device, ...]:
+    def positions(self, axis, **at: int) -> Line:
         """The devices along ``axis``, every other axis at the index ``at``
         names (default 0), in axis order: entry i is the position with
         ``axis_index == i`` on that line of the mesh.  A tuple of axes is
@@ -79,7 +154,7 @@ class Mesh:
             if a in axes or not 0 <= j < self.shape[a]:
                 raise ValueError(f"{a}={j} does not fix a line along "
                                  f"{axis!r} of {self}")
-        out = []
+        ids = []
         for flat_line in range(math.prod(self.shape[a] for a in axes)):
             idx, rest = {}, flat_line
             for a in reversed(axes):
@@ -87,8 +162,8 @@ class Mesh:
             flat = 0
             for a, n in self.shape.items():
                 flat = flat * n + (idx[a] if a in idx else at.get(a, 0))
-            out.append(self.devices[flat])
-        return tuple(out)
+            ids.append(flat)
+        return Line((self.devices[i] for i in ids), ids)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, "
@@ -101,6 +176,16 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     ``cuda``, which raises without a card; the tests pass ``"cpu"``)."""
     dev = _concrete(resolve_device(device))
     return Mesh(axis_names, shape, [dev] * math.prod(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The reference's production mesh (reference launch/mesh.py:19):
+    (16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+    "model") with ``multi_pod``; every position on ``device`` (default
+    ``cuda``; the dry run passes ``"meta"``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
 
 
 def _concrete(dev: torch.device) -> torch.device:
@@ -126,9 +211,13 @@ def make_context(mesh: Mesh, mode: str, *, impl: Optional[str] = None,
     stripe over those axes (``ExecContext.pool_axis``).  Both roles ride
     the "data" axis so prefill-pool pages hand off to decode pools
     position-locally.  ``tp_axis`` is "model" where the mesh has that
-    axis with more than one position (heads shard over it), else None."""
+    axis with more than one position (heads shard over it), else None;
+    ``pod_axis`` is "pod" where the mesh has it (the multi-pod mesh's
+    outer data axis)."""
     tp = "model" if mesh.shape.get("model", 1) > 1 else None
-    common = dict(mesh=mesh, tp_axis=tp, impl=impl, window=window)
+    pod = "pod" if "pod" in mesh.axis_names else None
+    common = dict(mesh=mesh, tp_axis=tp, pod_axis=pod, impl=impl,
+                  window=window)
     if mode == "train":
         return ExecContext(dp_axis="data", remat=True, **common)
     if mode == "prefill":
@@ -154,12 +243,14 @@ def ring_shift(xs: Sequence[torch.Tensor],
     """``lax.ppermute`` with the ring permutation j -> j + 1: position i
     receives position i - 1's part."""
     n = len(xs)
+    _record("collective-permute", _nbytes(xs[0]), n)
     return [to(xs[(i - 1) % n], devices[i]) for i in range(n)]
 
 
 def all_gather(xs: Sequence[torch.Tensor],
                device: torch.device) -> torch.Tensor:
     """``lax.all_gather``: the parts stacked on ``device``, (n, ...)."""
+    _record("all-gather", sum(_nbytes(x) for x in xs), len(xs))
     return torch.stack([to(x, device) for x in xs])
 
 
@@ -172,6 +263,7 @@ def split(x: torch.Tensor,
     if x.shape[1] % n:
         raise ValueError(f"dim 1 of {tuple(x.shape)} does not divide over "
                          f"{n} positions")
+    _record("scatter", _nbytes(x), n)
     return [to(p.contiguous(), d)
             for p, d in zip(torch.chunk(x, n, dim=1), devices)]
 
@@ -179,6 +271,7 @@ def split(x: torch.Tensor,
 def unsplit(xs: Sequence[torch.Tensor],
             device: torch.device) -> torch.Tensor:
     """The inverse of ``split``: the shards concatenated on ``device``."""
+    _record("all-gather", sum(_nbytes(x) for x in xs), len(xs))
     return torch.cat([to(x, device) for x in xs], dim=1)
 
 

@@ -33,7 +33,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import to
+from repro_torch.launch.mesh import at, to
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import mlp
 from repro_torch.models.sharding import ExecContext
@@ -174,12 +174,12 @@ def _ungroup(y: torch.Tensor, T: int, B: int, S: int, d: int
 
 def _token_axes(ctx: ExecContext, S: int):
     """The axes a layer's token groups are split over (reference
-    ``_token_axes``; the pod axis is not ported): a one-token tick's are
-    the batch axes, a chunk's the SP axis, else the batch axes."""
+    ``_token_axes``): a one-token tick's are the batch axes, a chunk's
+    the pod and SP axes, else the batch axes."""
     if S == 1:
         return ctx.batch_axes
     if ctx.sp_axis is not None:
-        return (ctx.sp_axis,)
+        return tuple(a for a in (ctx.pod_axis, ctx.sp_axis) if a)
     return ctx.batch_axes
 
 
@@ -255,30 +255,34 @@ def _moe_ep(xt: torch.Tensor, p: dict, cfg: ModelConfig, ctx: ExecContext,
     parts = [to(xp.contiguous(), dev) for xp, dev in
              zip(torch.chunk(xt, len(holders), dim=0), holders)]
     routes, slots, sent = [], [], []
-    for xp, dev in zip(parts, holders):
-        r = _route(xp, to(p["router"], dev), m, E, C)
-        xe, st = _dispatch_gather(xp, r, E, C)             # (n_l, E, C, d)
+    for j, (xp, dev) in enumerate(zip(parts, holders)):
+        with at(holders, j):
+            r = _route(xp, to(p["router"], dev), m, E, C)
+            xe, st = _dispatch_gather(xp, r, E, C)         # (n_l, E, C, d)
         routes.append(r)
         slots.append(st)
         sent.append(xe.transpose(0, 1))                    # (E, n_l, C, d)
     got = []
     for i, dev in enumerate(owners):
-        # owner i's experts' slots from every part, side by side
-        xe_i = torch.cat([to(s[i * e_loc:(i + 1) * e_loc], dev)
-                          for s in sent], dim=1)           # (E/n, Σn_l, C, d)
-        exp_i = {k: to(w[i * e_loc:(i + 1) * e_loc], dev)
-                 for k, w in p["experts"].items()}
-        ye_i = _expert_ffn(xe_i.reshape(1, e_loc, -1, xe_i.shape[-1]),
-                           exp_i, cfg.mlp_type)
-        got.append(ye_i.reshape(xe_i.shape))
+        with at(owners, i):
+            # owner i's experts' slots from every part, side by side
+            xe_i = torch.cat([to(s[i * e_loc:(i + 1) * e_loc], dev)
+                              for s in sent], dim=1)       # (E/n, Σn_l, C, d)
+            exp_i = {k: to(w[i * e_loc:(i + 1) * e_loc], dev)
+                     for k, w in p["experts"].items()}
+            ye_i = _expert_ffn(xe_i.reshape(1, e_loc, -1, xe_i.shape[-1]),
+                               exp_i, cfg.mlp_type)
+            got.append(ye_i.reshape(xe_i.shape))
     ys, auxes, off = [], [], 0
-    for xp, dev, r, st in zip(parts, holders, routes, slots):
+    for j, (xp, dev, r, st) in enumerate(zip(parts, holders, routes,
+                                             slots)):
         n_l = xp.shape[0]
-        ye = torch.cat([to(y[:, off:off + n_l], dev) for y in got],
-                       dim=0).transpose(0, 1)               # (n_l, E, C, d)
-        off += n_l
-        ys.append(to(_combine_gather(ye.contiguous(), r, st, E, C),
-                     xt.device))
-        auxes.append(to(_aux_loss(r, E), xt.device))
+        with at(holders, j):
+            ye = torch.cat([to(y[:, off:off + n_l], dev) for y in got],
+                           dim=0).transpose(0, 1)           # (n_l, E, C, d)
+            off += n_l
+            ys.append(to(_combine_gather(ye.contiguous(), r, st, E, C),
+                         xt.device))
+            auxes.append(to(_aux_loss(r, E), xt.device))
     return torch.cat(ys, dim=0), torch.stack(auxes).mean()
 

@@ -11,6 +11,15 @@ are stored in ``cfg.dtype`` (the reference keeps fp32 and casts at every
 call; casting once at load gives the same numbers).  Norm scales and the
 SSM's per-head ``dt_bias``, ``A_log`` and ``D``, which the reference reads
 in fp32 whatever the compute type, are kept in fp32.
+
+``param_specs(cfg, ctx)`` gives each leaf's placement on the reference's
+mesh as a tuple of axis names a dim (``P(None, "data", "model")`` is
+``(None, "data", "model")``; ``()`` is replicated), the 2-D rule under
+``ctx.shard2d_weights`` included, and ``abstract_params(cfg, dtype)`` the
+tree as ``TensorSpec`` records, every leaf at ``dtype`` as in the
+reference (params.py:249).  They describe the reference's placement: the
+port itself keeps every weight whole on position 0 of its mesh
+(``launch/dryrun.py`` counts it so).
 """
 
 from __future__ import annotations
@@ -21,8 +30,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.registry import TensorSpec
 from repro_torch.models.config import LayerSpec, ModelConfig
-from repro_torch.models.sharding import resolve_device
+from repro_torch.models.sharding import ExecContext, resolve_device
 
 
 def _attn_shapes(cfg: ModelConfig, prefix: str = "") -> dict:
@@ -104,6 +114,82 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return shapes
 
 
+# ------------------------------------------------------------------- specs
+def _matrix_spec(key: str, shape: tuple, cfg: ModelConfig,
+                 ctx: ExecContext) -> tuple:
+    """Sharding rule per parameter name, on its unstacked shape
+    (reference params.py:109).  With ``ctx.shard2d_weights`` the dim that
+    TP leaves whole splits over the data axis too (2-D weight sharding
+    for small-batch decode)."""
+    tp = ctx.tp_axis
+    if tp is None or ctx.mesh is None:
+        return ()
+    n = ctx.axis_size(tp)
+    dp = None
+    if ctx.shard2d_weights:
+        # the data axis, whether or not the batch splits over it
+        # (long_500k has batch 1)
+        cand = ctx.dp_axis or ("data" if "data" in ctx.mesh.axis_names
+                               else None)
+        if cand is not None and ctx.axis_size(cand) > 1:
+            dp = cand
+
+    def t(dim):
+        return tp if dim % n == 0 else None
+
+    def d(dim):
+        return dp if dp is not None and dim % ctx.axis_size(dp) == 0 \
+            else None
+
+    if key in ("embed", "unembed"):
+        return (t(shape[0]), d(shape[1]))
+    if key == "pos_emb":
+        return ()
+    base = key[2:] if key.startswith("x_") else key
+    if base == "wq":
+        return (d(shape[0]), t(shape[-1]))
+    if base in ("wk", "wv"):
+        return (d(shape[0]), tp if cfg.n_kv_heads % n == 0 else None)
+    if base in ("wo", "wout"):
+        return (t(shape[-2]), d(shape[-1]))
+    if base in ("wi", "wg"):
+        if len(shape) == 3:                    # stacked expert (E, d, f)
+            return (None, d(shape[-2]), t(shape[-1]))
+        return (d(shape[0]), t(shape[-1]))
+    if base == "wz":
+        return (d(shape[0]), t(shape[-1]))
+    if base == "wxbc" and dp is not None and len(shape) == 2:
+        return (d(shape[0]), None)
+    return ()                                  # norms, router, conv, small
+
+
+def param_specs(cfg: ModelConfig, ctx: ExecContext) -> dict:
+    """Each leaf's placement on the reference's mesh, a tuple of axis
+    names (or None) a dim, stacked leaves with a leading None (reference
+    params.py:166)."""
+    def walk(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        key = path[-1]
+        stacked = path[0] in ("blocks", "encoder")
+        base = tree[1:] if stacked else tree
+        spec = _matrix_spec(key, base, cfg, ctx)
+        if key == "wo" and len(base) == 3:          # expert wo (E, f, d)
+            n = ctx.axis_size(ctx.tp_axis)
+            spec = ((None, ctx.tp_axis, None)
+                    if ctx.tp_axis and base[1] % n == 0 else ())
+        return (None,) + spec if stacked else spec
+
+    return walk(param_shapes(cfg))
+
+
+def abstract_params(cfg: ModelConfig, dtype: str = "bfloat16") -> dict:
+    """The parameter tree as ``TensorSpec`` records, every leaf at
+    ``dtype`` (reference params.py:249); nothing is allocated."""
+    dt = getattr(torch, dtype)
+    return _map_tree(param_shapes(cfg), lambda _, sh: TensorSpec(sh, dt))
+
+
 def _is_fp32(name: str) -> bool:
     return (name.startswith("norm") or name == "final_norm"
             or name in ("dt_bias", "A_log", "D"))
@@ -129,31 +215,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     device = resolve_device(device)
     dt = getattr(torch, dtype or cfg.dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    f32 = torch.float32
+    params = _map_tree(param_shapes(cfg), lambda path, shape: init_leaf(
+        path, shape, dt, device, gen))
+    zero_padded_heads(cfg, params)
+    return params
 
-    def uniform(shape, lo, hi):
+
+def init_leaf(path: tuple, shape: tuple, dt: torch.dtype, device,
+              gen: torch.Generator) -> torch.Tensor:
+    """One leaf of ``init_params`` by its name (``path[-1]``): matrices
+    at ``dt``, norms and the SSM scalars in fp32."""
+    f32 = torch.float32
+    name = path[-1]
+
+    def uniform(lo, hi):
         return torch.empty(shape, dtype=f32, device=device).uniform_(
             lo, hi, generator=gen)
 
-    def make(path, shape):
-        name = path[-1]
-        if name == "dt_bias":
-            u = uniform(shape, math.log(1e-3), math.log(1e-1))
-            return torch.log(torch.expm1(torch.exp(u)))
-        if name == "A_log":
-            return torch.log(uniform(shape, 1.0, 16.0))
-        if _is_fp32(name):                      # norms and D
-            return torch.ones(shape, dtype=f32, device=device)
-        if name.startswith("b") or name == "conv_b":
-            return torch.zeros(shape, dtype=dt, device=device)
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        std = 1.0 / math.sqrt(max(fan_in, 1))
-        w = torch.empty(shape, dtype=dt, device=device)
-        return w.normal_(0.0, std, generator=gen)
+    if name == "dt_bias":
+        u = uniform(math.log(1e-3), math.log(1e-1))
+        return torch.log(torch.expm1(torch.exp(u)))
+    if name == "A_log":
+        return torch.log(uniform(1.0, 16.0))
+    if _is_fp32(name):                          # norms and D
+        return torch.ones(shape, dtype=f32, device=device)
+    if name.startswith("b") or name == "conv_b":
+        return torch.zeros(shape, dtype=dt, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.empty(shape, dtype=dt, device=device)
+    return w.normal_(0.0, std, generator=gen)
 
-    params = _map_tree(param_shapes(cfg), make)
-    # zero the padded query heads (phi4: 24 -> 32) so that they are inert:
-    # their wq columns and wo rows
+
+def zero_padded_heads(cfg: ModelConfig, params: dict) -> None:
+    """Zero the padded query heads (phi4: 24 -> 32) in place, their wq
+    columns and wo rows, so that they are inert."""
     dh = cfg.head_dim_
     for idx in padded_head_indices(cfg):
         for i, spec in enumerate(cfg.pattern):
@@ -161,7 +257,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 blk = params["blocks"][str(i)]
                 blk["wq"][..., idx * dh:(idx + 1) * dh] = 0
                 blk["wo"][..., idx * dh:(idx + 1) * dh, :] = 0
-    return params
 
 
 def padded_head_indices(cfg: ModelConfig) -> list:

@@ -21,6 +21,14 @@ MoE dispatch strategy, the two sliding-window decode branches
 (``window_slice``, ``ring_cache``) and ``remat`` (train mode recomputes
 each block's activations in the backward pass, reference
 ``sharding.py:28``).
+
+Two fields name the reference's placement without changing what this
+process runs: ``pod_axis`` (the multi-pod outer data axis, major in
+``batch_axes``) and ``shard2d_weights`` (2-D weight sharding, the dim
+that TP leaves whole split over the data axis too:
+``models.params.param_specs`` reads it).  The reference's
+``unroll_scan`` is not here: the port's layer loop is Python, never a
+scan, so there is nothing to unroll.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ class ExecContext:
     # split-KV decode (paged and dense); a tuple is a collapsed split
     kv_split_axis: Optional[Union[str, Tuple[str, ...]]] = None
     tp_axis: Optional[str] = None        # attention heads (TP)
+    pod_axis: Optional[str] = None       # multi-pod outer data axis
     # live stripe width of an elastically restriped paged pool (None: all
     # of its physical shards)
     active_pool_shards: Optional[int] = None
@@ -89,6 +98,9 @@ class ExecContext:
     # train mode: checkpoint each block of the stack (its activations are
     # recomputed in the backward pass)
     remat: bool = False
+    # 2-D weight sharding (model x data) in ``param_specs``: the weights'
+    # placement on the reference's mesh; this process keeps them whole
+    shard2d_weights: bool = False
 
     def __post_init__(self):
         first = None if self.mesh is None else self.mesh.devices[0]
@@ -99,7 +111,7 @@ class ExecContext:
                              f"position 0 device {first}")
         object.__setattr__(self, "device", dev)
         for ax in (self.dp_axis, self.sp_axis, self.tp_axis,
-                   *_axes(self.kv_split_axis)):
+                   self.pod_axis, *_axes(self.kv_split_axis)):
             if ax is not None and self.mesh is not None \
                     and ax not in self.mesh.axis_names:
                 raise ValueError(f"axis {ax!r} is not an axis of "
@@ -114,9 +126,10 @@ class ExecContext:
 
     @property
     def batch_axes(self):
-        """Axes the batch dim is sharded over (the reference's pod axis
-        is not ported), or None."""
-        return (self.dp_axis,) if self.dp_axis is not None else None
+        """Axes the batch dim is sharded over (pod major), or None."""
+        axes = tuple(a for a in (self.pod_axis, self.dp_axis)
+                     if a is not None)
+        return axes if axes else None
 
     def moe_ep_axis(self) -> Optional[str]:
         """The axis the experts split over under ``moe_ep``: "data" where

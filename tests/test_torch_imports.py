@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_reference():
             "training/optimizer.py", "training/train_loop.py",
             "training/checkpoint.py", "launch/train.py",
             "serving/kv_offload.py", "serving/kv_fabric.py",
-            "serving/telemetry.py"} <= names
+            "serving/telemetry.py", "launch/steps.py", "launch/roofline.py",
+            "launch/dryrun.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
            for p in files for line, name in _imports(p)
            if name.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -45,8 +46,9 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_mesh_modules_import_without_jax():
-    """The mesh, training and memory-tier slices' modules, and the page
-    helpers, import in a process where jax cannot be imported at all."""
+    """The mesh, training, memory-tier and dry-run slices' modules, and
+    the page helpers, import in a process where jax cannot be imported
+    at all."""
     import subprocess
     import sys
     code = ("import sys; sys.modules['jax'] = None; "
@@ -59,7 +61,8 @@ def test_mesh_modules_import_without_jax():
             " repro_torch.training.train_loop,"
             " repro_torch.training.checkpoint, repro_torch.launch.train,"
             " repro_torch.serving.kv_offload, repro_torch.serving.kv_fabric,"
-            " repro_torch.serving.telemetry; "
+            " repro_torch.serving.telemetry, repro_torch.launch.steps,"
+            " repro_torch.launch.roofline, repro_torch.launch.dryrun; "
             "from repro_torch.kernels.flash_decode import gather_kv_pages,"
             " scatter_kv_token, scatter_kv_prefill")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
