@@ -11,26 +11,42 @@ Phases, each printing JSON lines:
                Qwen1.5-MoE's, ChatGLM3-6B's and Nemotron-4-15B's heads:
                GQA groups 1, 16 and 6; K1-K3 under Mixtral-8x22B's
                4096-token window; K3/K4 at Whisper-medium's head_dim
-               64, non-causal) and at edge cases, with kernel, plain and
-               library times (each timed case also one call at a time
-               with a cold L2), and K1 over one row of 131,072 keys;
+               64, non-causal; K1-K3 at the served shapes of Llama-3-70B
+               and Yi-9B (G 8), Phi-4-mini (G 4, 8 of 32 heads inert
+               pads) and Mixtral under its window, K5 at Jamba's 256
+               heads) and at edge cases, with kernel, plain and library
+               times (each timed case also one call at a time with a
+               cold L2, and the ``-Xptxas -v`` report of its instances),
+               and K1 over one row of 131,072 keys;
   3. serve   — Llama-3-8B (bf16, 32 layers), Mamba-2-1.3B (bf16, 48
                layers), Qwen1.5-MoE-A2.7B (bf16, 24 layers, 60 routed
                experts top-4), ChatGLM3-6B (bf16, 28 layers, 32 heads over
-               2 KV heads) and Nemotron-4-15B (bf16, 32 layers, 48 heads
-               over 8), each at full width with seeded weights, serve four
-               requests through the port's ServingEngine; each path must
-               launch exactly its kernels (K1-K3 for the attention models,
-               K5 for Mamba-2), the first chunk, a history chunk and a
-               decode tick are held to the plain path on the same weights
-               (and, except on Llama, each K1-K3 or K5 call of that replay
-               to its plain version on its own inputs), and chunk/tick
-               device times plus event-clock TTFT/TBT are printed; on Qwen
-               also the share of (token, choice) pairs that capacity
-               dropped, and the routing decisions that differ between the
-               replays; and each engine's host-clock share spent in
-               release demotions (published pages gathered to the host
-               prefix cache);
+               2 KV heads), Nemotron-4-15B (bf16, 32 layers, 48 heads
+               over 8), Yi-9B (48 layers, 32 heads over 4), Phi-4-mini
+               (32 layers, 24 heads padded to 32 over 8), and, cut in
+               depth to fit the card (``SERVE_LAYERS``; the path's first
+               line prints the cut and why), Llama-3-70B (16 of 80
+               layers), Qwen2-VL-72B (16 of 80, M-RoPE, q/k/v bias),
+               Mixtral-8x22B (8 of 56, 8 experts top-2 under a
+               4096-token window) and Jamba-1.5-Large (its published
+               layers 0-4: Mamba at 0-3 with K5 at 256 heads, MoE at 1
+               and 3, attention at 4), each at full width with seeded
+               weights, serve four requests through the port's
+               ServingEngine; each path must launch exactly its kernels
+               (K1-K3 for the attention layers, K5 for the Mamba layers),
+               as many times as the trace predicts (``serve_launches``),
+               the first chunk, a history chunk and a decode tick are held
+               to the plain path on the same weights (and, except on
+               Llama, each K1-K3 or K5 call of that replay to its plain
+               version on its own inputs, with planted faults, on Mixtral
+               also half the keys dropped inside its window), and
+               chunk/tick device times, event-clock TTFT/TBT, weights,
+               peak memory and stage seconds are printed; on the MoE
+               models also the share of (token, choice) pairs that
+               capacity dropped, and the routing decisions that differ
+               between the replays; and each engine's host-clock share
+               spent in release demotions (published pages gathered to
+               the host prefix cache);
   3b. serve_sp — Llama-3-8B at full width, bf16, served by the same
                engine on a 4-position mesh whose positions all sit on the
                one card (``launch.mesh``): both page pools striped 4 ways,
@@ -119,11 +135,13 @@ Phases, each printing JSON lines:
                the prefill and first tick are replayed with each K3/K4
                call held to its plain version, and their logits held to
                the plain path's;
-  6. tokens  — fp32 at two layers (full widths): each served model's
-               engine gives identical greedy tokens on the kernel path and
-               the plain path, Llama's 4-position mesh engine (also
-               restriped live), its 2 x 2 TP x SP engine, its dense
-               path and its zigzag + split-KV dense path on the mesh give
+  6. tokens  — fp32 at two layers (full widths; Jamba its published
+               layers 3-4, Mamba with MoE and the attention layer;
+               Mixtral over a 5000-token prompt, past its window): each
+               served model's engine gives identical greedy tokens on the
+               kernel path and the plain path, Llama's 4-position mesh
+               engine (also restriped live), its 2 x 2 TP x SP engine, its
+               dense path and its zigzag + split-KV dense path on the mesh give
                the paged engine's tokens, Mamba-2's mesh engine (sp_ssd)
                and Qwen1.5-MoE's mesh engine with expert parallelism
                give their unsharded engines' tokens, and Whisper's
@@ -222,6 +240,16 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
                            "flash_attention"},
          "serve_nemotron": {"paged_flash_decode", "paged_flash_prefill",
                             "flash_attention"},
+         # the rest of the registry: G 8 (Yi-9B, Llama-3-70B, Qwen2-VL-72B),
+         # padded heads (Phi-4-mini), a window under an MoE (Mixtral), and
+         # the hybrid, whose Mamba layers scan with K5 in each chunk (its
+         # ticks step the state in plain torch, as the reference's do)
+         **{p: {"paged_flash_decode", "paged_flash_prefill",
+                "flash_attention"}
+            for p in ("serve_yi", "serve_phi", "serve_llama70b",
+                      "serve_qwen2vl", "serve_mixtral")},
+         "serve_jamba": {"paged_flash_decode", "paged_flash_prefill",
+                         "flash_attention", "ssd_scan"},
          # the mesh path: ring steps and slabs through K3, the split-KV
          # tick through K1; K2 stays on the single-device engine
          "serve_sp": {"paged_flash_decode", "flash_attention"},
@@ -259,7 +287,24 @@ PATHS = {"serve_llama": {"paged_flash_decode", "paged_flash_prefill",
          "roofline_mamba": {"ssd_scan"}}
 # the served attention models whose replay holds each K1-K3 call to its
 # plain version (attn_call_gate)
-ATTN_GATED = ("serve_moe", "serve_chatglm", "serve_nemotron")
+ATTN_GATED = ("serve_moe", "serve_chatglm", "serve_nemotron", "serve_yi",
+              "serve_phi", "serve_llama70b", "serve_qwen2vl", "serve_mixtral",
+              "serve_jamba")
+# the served paths in the order phase serve runs them (each frees its
+# weights before the next starts)
+SERVED = (("llama3-8b", "serve_llama"), ("mamba2-1.3b", "serve_mamba"),
+          ("qwen2-moe-a2.7b", "serve_moe"), ("chatglm3-6b", "serve_chatglm"),
+          ("nemotron-4-15b", "serve_nemotron"), ("yi-9b", "serve_yi"),
+          ("phi4-mini-3.8b", "serve_phi"), ("llama3-70b", "serve_llama70b"),
+          ("qwen2-vl-72b", "serve_qwen2vl"),
+          ("mixtral-8x22b", "serve_mixtral"),
+          ("jamba-1.5-large-398b", "serve_jamba"))
+# served configurations whose published depth does not fit the card:
+# the layers kept (at published widths).  Jamba keeps its published
+# layers 0-4 (Mamba at 0-3, MoE at 1 and 3, attention at 4): a whole
+# period of 8 holds four 19.3-GB MoE layers
+SERVE_LAYERS = {"llama3-70b": 16, "qwen2-vl-72b": 16, "mixtral-8x22b": 8,
+                "jamba-1.5-large-398b": 5}
 
 
 class CheckFailed(RuntimeError):
@@ -493,6 +538,38 @@ _SSD_MAIN_TC = re.compile(r"ssd_(state|out)_tc_kernel(<(\(int\))?64, "
                           r"(\(int\))?128>|ILi64ELi128E)")
 
 
+# {source: {kernel instance: "spills; registers"}}, from phase_device's
+# build
+PTXAS = {}
+
+
+def _instances(kernel: str, dtype, D: int, G: int = 0, N: int = 0) -> dict:
+    """The ``-Xptxas -v`` report of the instances a call of ``kernel`` at
+    ``dtype`` and head_dim (K5: head_dim P and state N) runs: K1's split
+    kernel at its GQA group ``G`` and its merge kernel; K2's / K3's
+    tensor-core or SIMT kernel (both TMA variants); K5's state, output
+    and pass kernels."""
+    bf = str(dtype).endswith("bfloat16")
+    if kernel == "paged_flash_decode":
+        src = "paged_decode"
+        el = r"__nv_bfloat16" if bf else r"float"
+        pat = (rf"decode_split_kernel<{el}, \(int\){D}, \(int\){G}, "
+               rf"\(bool\)0>|decode_merge_kernel<{el}, \(int\){D}>")
+    elif kernel in ("paged_flash_prefill", "flash_attention"):
+        src = "flash_attention"
+        paged = int(kernel == "paged_flash_prefill")
+        pat = (rf"attn_{'tc' if bf else 'simt'}_kernel<\(int\){D}, "
+               rf"\(bool\){paged}\b")
+    else:
+        src = "ssd_scan"
+        pat = (rf"{'tc' if bf else 'simt'}::ssd_(state|out)(_tc)?_kernel<"
+               rf"\(int\){D}, \(int\){N}>|"
+               + ("tc::ssd_pass_split_kernel" if bf else
+                  "simt::ssd_pass_kernel"))
+    return {k: v for k, v in PTXAS.get(src, {}).items()
+            if re.search(pat, k)}
+
+
 def phase_device():
     import torch
     from repro_torch.kernels import _build
@@ -513,6 +590,7 @@ def phase_device():
          count=torch.cuda.device_count(), build_s=round(wall, 2),
          build_s_per_source={k: round(v, 2) for k, v in per.items()})
     emit(phase="device", ptxas=ptxas)
+    PTXAS.update(ptxas)
     main_tc = {k: v for k, v in ptxas.get("ssd_scan", {}).items()
                if _SSD_MAIN_TC.search(k)}
     check(len(main_tc) == 2 and all(
@@ -569,6 +647,8 @@ def phase_kernels(full_shapes: bool = True):
         POS_PAD, flash_decode, flash_decode_plain, paged_flash_decode,
         paged_flash_decode_plain)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.params import padded_head_indices
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(0)
     tol = {getattr(torch, k): v for k, v in KERNEL_TOL.items()}
@@ -625,18 +705,22 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K3: flash attention over a chunk's own KV
     def k3(case, B, Sq, Sk, H, KVH, D, dtype, causal=True, window=None,
-           offset=0, perm=None, main=False, timed=False):
+           offset=0, kv_offset=0, perm=None, zero_heads=(), main=False,
+           timed=False):
         """``perm``: "within" shuffles key positions inside each 64-key
         tile, "across" over all keys (K/V rows move with them), so a tile's
-        positions are neither sorted nor its index's.  ``main``: the kernel
+        positions are neither sorted nor its index's.  ``zero_heads``:
+        query heads set to zero (inert padded heads).  ``main``: the kernel
         table's row; ``timed`` (implied by ``main``): times and a planted
         fault."""
         timed = timed or main
         q = randn(B, Sq, H, D, dtype=dtype)
+        q[:, :, list(zero_heads)] = 0
         k = randn(B, Sk, KVH, D, dtype=dtype)
         v = randn(B, Sk, KVH, D, dtype=dtype)
         qp = torch.arange(offset, offset + Sq, dtype=torch.int32, device=dev)
-        kp = torch.arange(Sk, dtype=torch.int32, device=dev)
+        kp = torch.arange(kv_offset, kv_offset + Sk, dtype=torch.int32,
+                          device=dev)
         if perm is not None:
             if perm == "within":
                 idx = torch.cat([t0 + torch.randperm(min(64, Sk - t0),
@@ -660,6 +744,12 @@ def phase_kernels(full_shapes: bool = True):
             planted = {"v_one_key_off": close_ratio(bad, po, t["atol"],
                                                     t["rtol"])}
             pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+            mask = None
+            if window is not None:
+                # the (query, key) pairs the window leaves
+                d = qp[:, None] - kp[None]
+                mask = ((d >= 0) & (d < window))[None].expand(B, Sq, Sk)
+                pairs = int(mask[0].sum())
             es = torch.finfo(dtype).bits // 8
             nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KVH * D) * es \
                 + B * H * Sq * 4 + (Sq + Sk) * 4
@@ -669,9 +759,10 @@ def phase_kernels(full_shapes: bool = True):
             times = _times(
                 lambda: flash_attention(q, k, v, qp, kp, **kw),
                 lambda: flash_attention_plain(q, k, v, qp, kp, **kw),
-                _sdpa(q, k, v, None, causal), bms, by)
+                _sdpa(q, k, v, mask, causal), bms, by)
             times.update(_cold_times(
                 lambda: flash_attention(q, k, v, qp, kp, **kw)))
+            times["ptxas"] = _instances("flash_attention", dtype, D)
         record("flash_attention", case, dtype, errs, main, times, planted)
 
     # ---- K2: chunk queries against history pages
@@ -685,13 +776,15 @@ def phase_kernels(full_shapes: bool = True):
             pool[table[r, f // page].long(), f % page] = float("nan")
 
     def k2(case, B, Sq, hist, H, KVH, D, page, dtype, window=None,
-           main=False, fault=False, timed=False, nan_tail=False):
+           zero_heads=(), main=False, fault=False, timed=False,
+           nan_tail=False):
         """``fault`` (implied by ``main`` and ``timed``): the check must
         also reject a planted fault (V one key off) at this case's shape;
         ``timed`` (implied by ``main``): times; ``nan_tail``: NaN in the
-        slots past each row's history."""
+        slots past each row's history; ``zero_heads``: as k3's."""
         timed = timed or main
         q = randn(B, Sq, H, D, dtype=dtype)
+        q[:, :, list(zero_heads)] = 0
         S_h = max(hist) if max(hist) > 0 else page
         kd = randn(B, S_h, KVH, D, dtype=dtype)
         vd = randn(B, S_h, KVH, D, dtype=dtype)
@@ -722,37 +815,47 @@ def phase_kernels(full_shapes: bool = True):
                                                     t["rtol"])}
             del vbad
         if timed:
+            kg = kd[:, :max(hist)]
+            vg = vd[:, :max(hist)]
+            kpos = torch.arange(max(hist), device=dev)[None, None]
+            mask = (kpos < hl[:, None, None]).expand(B, Sq, max(hist))
+            if window is not None:
+                mask = mask & (qp[:, :, None] - kpos < window)
+            # the visible (query, key) pairs: Sq * sum(hist) without a
+            # window
             es = torch.finfo(dtype).bits // 8
             nbytes = 2 * B * Sq * H * D * es + 2 * sum(hist) * KVH * D * es \
                 + B * H * Sq * 4
-            bms, by = bound_ms(nbytes, 4 * H * D * Sq * sum(hist),
+            bms, by = bound_ms(nbytes, 4 * H * D * int(mask.sum()),
                                str(dtype).split(".")[-1])
-            kg = kd[:, :max(hist)]
-            vg = vd[:, :max(hist)]
-            mask = (torch.arange(max(hist), device=dev)[None, None]
-                    < hl[:, None, None]).expand(B, Sq, max(hist))
+            kw = dict(window=window)
             times = _times(
-                lambda: paged_flash_prefill(q, kpool, vpool, table, hl, qp),
+                lambda: paged_flash_prefill(q, kpool, vpool, table, hl, qp,
+                                            **kw),
                 lambda: paged_flash_prefill_plain(q, kpool, vpool, table, hl,
-                                                  qp),
+                                                  qp, **kw),
                 _sdpa(q, kg, vg, mask), bms, by)
             times.update(_cold_times(
-                lambda: paged_flash_prefill(q, kpool, vpool, table, hl, qp)))
+                lambda: paged_flash_prefill(q, kpool, vpool, table, hl, qp,
+                                            **kw)))
+            times["ptxas"] = _instances("paged_flash_prefill", dtype, D)
         record("paged_flash_prefill", case, dtype, errs, main, times,
                planted)
 
     # ---- K1: paged decode with the fused append
     def k1(case, lengths, H, KVH, D, page, dtype, window=None, append=True,
-           pos_pad_cols=0, pad_rows=(), main=False, timed=False,
-           nan_tail=False):
+           pos_pad_cols=0, pad_rows=(), zero_heads=(), main=False,
+           timed=False, nan_tail=False):
         """``main``: the kernel table's row; ``timed`` (implied by
         ``main``): times (warm and cold L2) and a planted fault;
         ``nan_tail``: NaN in the slots at and past each row's length (the
-        append slot included, which the call writes first)."""
+        append slot included, which the call writes first);
+        ``zero_heads``: as k3's."""
         timed = timed or main
         B = len(lengths)
         S = max(max(lengths) + 1, 1)
         q = randn(B, H, D, dtype=dtype)
+        q[:, list(zero_heads)] = 0
         kd = randn(B, S, KVH, D, dtype=dtype)
         vd = randn(B, S, KVH, D, dtype=dtype)
         g2 = torch.Generator(device="cpu").manual_seed(2)
@@ -811,17 +914,21 @@ def phase_kernels(full_shapes: bool = True):
                                        vp2[live].nan_to_num(7.0))))}
         times = None
         if timed:
+            Smax = max(lengths) + 1
+            kg = kd[:, :Smax]
+            vg = vd[:, :Smax]
+            kpos = torch.arange(Smax, device=dev)[None, None]
+            mask = kpos < (ln + 1)[:, None, None]
             es = torch.finfo(dtype).bits // 8
             att = sum(lengths) + (B if append else 0)
+            if window is not None:
+                # only the keys inside each row's window are read
+                mask = mask & (kpos > ln[:, None, None] - window)
+                att = int(mask.sum())
             nbytes = 2 * B * H * D * es + 2 * att * KVH * D * es \
                 + B * H * 4 + (2 * B * KVH * D * es if append else 0)
             bms, by = bound_ms(nbytes, 4 * H * D * att,
                                str(dtype).split(".")[-1])
-            Smax = max(lengths) + 1
-            kg = kd[:, :Smax]
-            vg = vd[:, :Smax]
-            mask = (torch.arange(Smax, device=dev)[None, None]
-                    < (ln + 1)[:, None, None])
             times = _times(
                 lambda: paged_flash_decode(q, kpool, vpool, table, ln, **kw),
                 lambda: paged_flash_decode_plain(q, kp2, vp2, table, ln,
@@ -829,6 +936,8 @@ def phase_kernels(full_shapes: bool = True):
                 _sdpa(q[:, None], kg, vg, mask), bms, by)
             times.update(_cold_times(
                 lambda: paged_flash_decode(q, kpool, vpool, table, ln, **kw)))
+            times["ptxas"] = _instances("paged_flash_decode", dtype, D,
+                                        H // KVH)
         record("paged_flash_decode", case, dtype, errs, main, times,
                planted)
 
@@ -871,7 +980,10 @@ def phase_kernels(full_shapes: bool = True):
 
     # ---- K5: the Mamba-2 chunked SSD scan, under SSD_TOL
     def k5(case, B, S, H, P, G, N, chunk, dtype, h0=True, via_ops=False,
-           main=False):
+           main=False, timed=False):
+        """``main``: the kernel table's row; ``timed`` (implied by
+        ``main``): times (warm and cold L2) and the planted faults."""
+        timed = timed or main
         d_in = H * P
         # x, B and C as the model hands them over: slices of one fused
         # projection, strided by its row
@@ -897,7 +1009,7 @@ def phase_kernels(full_shapes: bool = True):
         errs = {"o": max_err(y, py), "o_ratio": r["y"],
                 "h": max_err(h, ph), "h_ratio": r["h"]}
         times = planted = None
-        if main:
+        if timed:
             planted = ssd_planted(x, dt, A, Bm, Cm, hz, chunk)
             bms, by = ssd_bound_ms(B, S, H, P, G, N, chunk,
                                    str(dtype).split(".")[-1], h0)
@@ -908,6 +1020,7 @@ def phase_kernels(full_shapes: bool = True):
                 None, bms, by)
             times.update(_cold_times(
                 lambda: ssd_scan(x, dt, A, Bm, Cm, h0=hz, chunk=chunk)))
+            times["ptxas"] = _instances("ssd_scan", dtype, P, N=N)
         ya, yr = SSD_TOL[str(dtype).split(".")[-1]]
         ha, hr = SSD_TOL["h_final"]
         record("ssd_scan", case, dtype, errs, main, times, planted,
@@ -964,6 +1077,29 @@ def phase_kernels(full_shapes: bool = True):
            window=4096, fault=True)
         k1("mixtral_window4096", [4500, 6144, 100, 8000], 48, 8, 128, 64,
            bf, window=4096)
+        # the instances the rest of the registry serves (phase serve's
+        # serve_yi ... serve_jamba), each at the served shapes: K3 the
+        # longest prompt's second chunk (3072 queries over their own keys
+        # at positions 3072-6143), K2 that chunk over its 3072 history
+        # tokens, K1 the decode batch.  G 8 at head_dim 128 (Llama-3-70B's
+        # 64 / 8 heads, Yi-9B's 32 / 4), G 4 with 8 of 32 query heads
+        # inert zero pads (Phi-4-mini: 24 heads padded over 8 KV heads,
+        # every fourth head of a group a pad), and Mixtral's 48 / 8 under
+        # its 4096-token window (K2's later queries and K1's 4096- and
+        # 6144-token rows lose keys to it); K5 at Jamba's 256 heads over
+        # a 3072-token chunk
+        phi = get_config("phi4-mini-3.8b")
+        for who, H, KVH, kw in (
+                ("llama70b_g8", 64, 8, {}), ("yi_g8", 32, 4, {}),
+                ("phi_g4_padded", 32, 8,
+                 {"zero_heads": padded_head_indices(phi)}),
+                ("mixtral_window4096_served", 48, 8, {"window": 4096})):
+            k3(who, 1, 3072, 3072, H, KVH, 128, bf, offset=3072,
+               kv_offset=3072, timed=True, **kw)
+            k2(who, 1, 3072, [3072], H, KVH, 128, 64, bf, timed=True, **kw)
+            k1(who, [512, 2048, 4096, 6144], H, KVH, 128, 64, bf, timed=True,
+               **kw)
+        k5("jamba_h256", 1, 3072, 256, 64, 1, 128, 256, bf, timed=True)
         # Mamba-2-1.3B: a 3072-token CDSP chunk with the state handed in
         # Whisper-medium (H 16 = KVH 16, D 64, non-causal): K3 over the
         # encoder's 1500 frames for four segments and the decoder's 224
@@ -1204,13 +1340,17 @@ def _replay(cfg, params, ctx, prompt, tokens):
     dev = ctx.device
     toks = torch.as_tensor(prompt, device=dev)[None]
     pos = torch.arange(L, dtype=torch.int32, device=dev)[None]
+    if cfg.rope_type == "mrope":
+        # (3, B, S): a text prompt's temporal, height and width rows agree,
+        # as the engine builds them
+        pos = pos[None].expand(3, 1, L)
     out = []
     aux = None
     for off, ln in ((0, l0), (l0, L - l0)):
         lg, nc, aux = prefill_chunk_paged(
-            params, cfg, ctx, toks[:, off:off + ln], pos[:, off:off + ln],
+            params, cfg, ctx, toks[:, off:off + ln], pos[..., off:off + ln],
             kv.pools, blocks[:-(-off // page)], off, aux)
-        kv.write_chunk(blocks, nc, pos[:, off:off + ln], active=act)
+        kv.write_chunk(blocks, nc, pos[..., off:off + ln], active=act)
         out.append(lg[0, 0, :cfg.vocab_size].float())
         del nc
     bt = np.asarray(blocks, np.int32)[None]
@@ -1226,9 +1366,11 @@ def _replay(cfg, params, ctx, prompt, tokens):
             if spec.mixer == "attn" else aux[key]["self"])}
     for i, token in enumerate(tokens):
         clen = torch.tensor([L + i], dtype=torch.int32, device=dev)
+        dpos = (clen[None, :, None].expand(3, 1, 1)
+                if cfg.rope_type == "mrope" else clen[:, None])
         lg, _, caches = forward(params, cfg, ctx,
                                 torch.tensor([[token]], device=dev),
-                                clen[:, None], "decode", caches=caches,
+                                dpos, "decode", caches=caches,
                                 cache_len=clen)
         out.append(lg[0, 0, :cfg.vocab_size].float())
     torch.cuda.synchronize()
@@ -1289,15 +1431,18 @@ def ssd_call_gate(run, n_layers: int, per: int = 1):
 
 def paged_gate_plan(n_layers: int):
     """(calls, keep) of ``attn_call_gate`` for a served model's replay (two
-    chunks, then a decode tick): K3 runs once a layer in each chunk (the
-    second chunk's calls follow the first's), K2 in the second chunk, K1
-    in the tick; the calls kept for planted faults are those of the first
-    and the last layer."""
+    chunks, then a decode tick) with ``n_layers`` attention layers: K3
+    runs once a layer in each chunk (the second chunk's calls follow the
+    first's), K2 in the second chunk, K1 in the tick; the calls kept for
+    planted faults are those of the first and the last attention
+    layer (one call where there is one layer)."""
+    def ends(first, last):
+        return tuple(sorted({first, last}))
     return ({"flash_attention": 2 * n_layers, "paged_flash_prefill": n_layers,
              "paged_flash_decode": n_layers},
-            {"flash_attention": (n_layers, 2 * n_layers - 1),
-             "paged_flash_prefill": (0, n_layers - 1),
-             "paged_flash_decode": (0, n_layers - 1)})
+            {"flash_attention": ends(n_layers, 2 * n_layers - 1),
+             "paged_flash_prefill": ends(0, n_layers - 1),
+             "paged_flash_decode": ends(0, n_layers - 1)})
 
 
 def whisper_gate_plan(n_enc: int, n_layers: int):
@@ -1323,14 +1468,44 @@ def _v_one_key_off(name, ins):
 
 def _half_keys_dropped(name, ins):
     """The second half of the keys dropped: K3's keys themselves, each K4
-    row's length halved."""
+    or K1 row's length and K2's history length halved (the keys dropped
+    are the latest, which a window keeps)."""
     if name == "flash_attention":
         q, k, v, q_pos, kv_pos = ins[:5]
         n = k.shape[1] // 2
         return (q, k[:, :n], v[:, :n], q_pos, kv_pos[..., :n], *ins[5:])
     if name == "flash_decode":
         return (*ins[:3], ins[3] // 2, *ins[4:])
+    if name in ("paged_flash_prefill", "paged_flash_decode"):
+        return (*ins[:4], ins[4] // 2, *ins[5:])
     raise ValueError(f"no half-keys fault for {name}")
+
+
+def _half_keys_visible(name, ins, window) -> int:
+    """How many of the keys ``_half_keys_dropped`` drops from a call of
+    ``name`` (batch row 0) some query of the call sees under ``window``:
+    a fault whose keys all lie outside every query's window would hide
+    behind the mask."""
+    import torch
+    if name == "flash_attention":
+        q_pos, kv_pos = ins[3].reshape(-1), ins[4].reshape(-1)
+        dropped = kv_pos[kv_pos.shape[0] // 2:].long()
+    elif name == "paged_flash_prefill":
+        n = int(ins[4].reshape(-1)[0])
+        q_pos = ins[5].reshape(-1)
+        dropped = torch.arange(n // 2, n, device=q_pos.device)
+    elif name == "paged_flash_decode":
+        # the query is the appended token, at the row's length
+        n = int(ins[4].reshape(-1)[0])
+        q_pos = torch.tensor([n])
+        dropped = torch.arange(n // 2, n)
+    else:
+        raise ValueError(f"no half-keys count for {name}")
+    lo, hi = int(q_pos.min()), int(q_pos.max())
+    seen = dropped <= hi
+    if window is not None:
+        seen &= dropped > lo - window
+    return int(seen.sum())
 
 
 # faults planted in an attention call's inputs (as its plain version
@@ -1340,7 +1515,7 @@ ATTN_FAULTS = {"v_one_key_off": _v_one_key_off,
 
 
 def attn_call_gate(run, want_calls: dict, keep: dict, *, held=None,
-                   plain_fns=None, faults=("v_one_key_off",)):
+                   plain_fns=None, faults=("v_one_key_off",), window=None):
     """Run ``run()``, a kernel-path replay of a bf16 attention model, with
     each call of the kernels named in ``want_calls`` (K1-K4) also held to
     its plain version on the same inputs (that layer's activations, the
@@ -1352,6 +1527,9 @@ def attn_call_gate(run, want_calls: dict, keep: dict, *, held=None,
     ``whisper_gate_plan``).  ``held`` ({kernel: call indices}) holds only
     those calls (default: every call); ``plain_fns`` ({kernel: fn})
     replaces a kernel's plain version (one whose scores would not fit).
+    Under a sliding ``window`` each kept call must also drop keys that
+    some query sees where ``half_keys_dropped`` is planted
+    (``_half_keys_visible``), or the fault would hide behind the mask.
     Returns (``run()``'s result, a report whose ``ok`` says whether every
     held call passed and every planted fault was rejected)."""
     from repro_torch.kernels import ops
@@ -1416,6 +1594,11 @@ def attn_call_gate(run, want_calls: dict, keep: dict, *, held=None,
                 bad[0], want[0], tol["atol"], tol["rtol"])
             del bad
         report[f"planted_{fault}"] = planted[fault]
+    visible = {}
+    if "half_keys_dropped" in faults and window is not None:
+        visible = {f"{name}_call{i}": _half_keys_visible(name, ins, window)
+                   for (name, i), (ins, _, _) in kept.items()}
+        report["half_keys_visible"] = {"window": window, **visible}
     n_held = {n: want_calls[n] if held is None else len(held[n])
               for n in want_calls}
     report["ok"] = (
@@ -1425,7 +1608,8 @@ def attn_call_gate(run, want_calls: dict, keep: dict, *, held=None,
                 for k in r)
         and all(len(p) == sum(len(v) for v in keep.values())
                 and all(v > 1.0 for v in p.values())
-                for p in planted.values()))
+                for p in planted.values())
+        and all(v > 0 for v in visible.values()))
     return out, report
 
 
@@ -1527,13 +1711,30 @@ def routing_diff(got, want, n_layers: int, rows) -> dict:
 # row's logits far more than rounding does; right paths read down to
 # 0.98873 and planted faults at most 0.94567
 # (tools/moe_logits_floor.py, PERF.md §6), so its attention kernels are
-# held per call instead (attn_call_gate).
+# held per call instead (attn_call_gate).  Mixtral-8x22B's and
+# Jamba-1.5-Large's are 0.6 and 0.95 for the same reason, measured the
+# same way (--arch; seeds 0 and 1, the smoke's two longest requests):
+# Mixtral's right paths (kernel, and plain with attention one ulp off)
+# read down to cosine 0.9831 and up to max |err| 0.347, its planted
+# faults (K2's partial left out, every router choice shifted) at most
+# 0.598 and at least 1.660 in their worst row; Jamba's right path reads
+# down to 0.9731 and up to 0.354 (K5's rounding in layers 0 and 2 moves
+# the router choices of layers 1 and 3), its shifted routers at most
+# 0.860 and at least 0.867.  Jamba's one attention layer is its last,
+# so the logits barely see a fault there (K2 left out: 0.9996); its
+# K1-K3 and K5 calls are held per call (both gates, nested)
 LOGIT_TOL = {"llama3-8b": {"max_abs_err": 0.25, "cos": 0.999},
              "mamba2-1.3b": {"max_abs_err": 0.25, "cos": 0.998},
              "qwen2-moe-a2.7b": {"max_abs_err": 0.25, "cos": 0.98},
              "chatglm3-6b": {"max_abs_err": 0.25, "cos": 0.999},
              "nemotron-4-15b": {"max_abs_err": 0.25, "cos": 0.999},
-             "whisper-medium": {"max_abs_err": 0.25, "cos": 0.999}}
+             "whisper-medium": {"max_abs_err": 0.25, "cos": 0.999},
+             "yi-9b": {"max_abs_err": 0.25, "cos": 0.999},
+             "phi4-mini-3.8b": {"max_abs_err": 0.25, "cos": 0.999},
+             "llama3-70b": {"max_abs_err": 0.25, "cos": 0.999},
+             "qwen2-vl-72b": {"max_abs_err": 0.25, "cos": 0.999},
+             "mixtral-8x22b": {"max_abs_err": 0.6, "cos": 0.95},
+             "jamba-1.5-large-398b": {"max_abs_err": 0.6, "cos": 0.95}}
 
 
 def _logits_vs_plain(phase, names, got, want, tol):
@@ -1550,24 +1751,92 @@ def _logits_vs_plain(phase, names, got, want, tol):
           f"{phase}: kernel-path logits disagree with the plain path")
 
 
+def cut_depth(cfg, n_layers: int, first: int = 0):
+    """``cfg`` at published widths with ``n_layers`` layers.  A pattern
+    longer than the cut (Jamba's period of 8) keeps its entries
+    ``first .. first + n_layers - 1``, those published layers, as one
+    block."""
+    if first == 0 and n_layers % len(cfg.pattern) == 0:
+        return dataclasses.replace(cfg, n_layers=n_layers)
+    pattern = cfg.pattern[first:first + n_layers]
+    check(len(pattern) == n_layers, f"{cfg.name}: no cut of {n_layers} "
+          f"layers from layer {first}")
+    return dataclasses.replace(cfg, n_layers=n_layers, pattern=pattern)
+
+
+def weight_gb(cfg) -> float:
+    """GB of ``cfg``'s parameter tree in its dtype, counted from the
+    shapes (nothing allocated), embeddings included."""
+    import torch
+    from repro_torch.models.params import param_shapes
+
+    def n(t):
+        return (sum(n(v) for v in t.values()) if isinstance(t, dict)
+                else math.prod(t))
+    es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return n(param_shapes(cfg)) * es / 1e9
+
+
+def served_config(arch: str):
+    """(the configuration phase serve runs, its depth cut or None): a cut
+    keeps ``SERVE_LAYERS[arch]`` layers at published widths and says
+    why."""
+    from repro_torch.configs.registry import get_config
+    full = get_config(arch)
+    if arch not in SERVE_LAYERS:
+        return full, None
+    cfg = cut_depth(full, SERVE_LAYERS[arch])
+    why = (f"{full.n_layers} layers are {weight_gb(full):.1f} GB of "
+           f"{full.dtype} weights, beyond the card's 80 GB; "
+           f"{cfg.n_layers} are {weight_gb(cfg):.1f} GB, beside the pools "
+           "and the plain replay, within the smoke's time")
+    if cfg.pattern != full.pattern:
+        why += (f"; one whole period of {len(full.pattern)} layers is "
+                f"{weight_gb(cut_depth(full, len(full.pattern))):.1f} GB, "
+                f"so the published layers 0-{cfg.n_layers - 1} run: "
+                + ", ".join(f"{i} {s.mixer}+{s.ffn}"
+                            for i, s in enumerate(cfg.pattern)))
+    return cfg, {"layers": cfg.n_layers, "of": full.n_layers, "why": why}
+
+
+def count_layers(cfg, **spec) -> int:
+    """Layers of ``cfg`` whose ``LayerSpec`` fields have the values given
+    (``mixer="attn"``, ``ffn="moe"``, ...)."""
+    return cfg.n_blocks * sum(all(getattr(s, k) == v for k, v in spec.items())
+                              for s in cfg.pattern)
+
+
+def serve_launches(cfg) -> dict:
+    """The kernel launches the smoke trace makes on ``cfg``'s engine: each
+    of the four requests' two chunks runs K3 once an attention layer, the
+    second chunk K2 too, and K5 once a Mamba layer; the 64 decode ticks
+    (16 a request: the arrivals 0.5 s apart do not overlap on the event
+    clock) run K1 once an attention layer (Mamba layers step the state
+    in plain torch)."""
+    a, m = count_layers(cfg, mixer="attn"), count_layers(cfg, mixer="mamba")
+    return {"paged_flash_decode": 64 * a, "paged_flash_prefill": 4 * a,
+            "flash_attention": 8 * a, "flash_decode": 0, "ssd_scan": 8 * m}
+
+
 def _serve_path(arch: str, path: str) -> dict:
-    """Serve the smoke trace on ``arch`` at full width; returns the
-    launch counts of the run."""
+    """Serve the smoke trace on ``arch`` at full width (and published or
+    cut depth, ``served_config``); returns the launch counts of the
+    run."""
     import numpy as np
     import torch
-    from repro_torch.configs.registry import get_config
     from repro_torch.models.params import count_params, init_params
     from repro_torch.models.sharding import make_context
     from repro_torch.serving.simulator import summarize
-    cfg = get_config(arch)
+    cfg, cut = served_config(arch)
     ctx = make_context("cuda")
     # what an earlier path left on the card (its weights must be gone)
     before = torch.cuda.memory_allocated() / 2**30
-    t0 = time.perf_counter()
+    t_path = t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=ctx.device)
     torch.cuda.synchronize()
     emit(phase="serve", model=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
-         d_model=cfg.d_model, params=count_params(params),
+         depth_cut=cut, d_model=cfg.d_model, params=count_params(params),
+         weights_gib=round(torch.cuda.memory_allocated() / 2**30 - before, 2),
          init_s=round(time.perf_counter() - t0, 2),
          allocated_gib_before=round(before, 2))
     rng = np.random.default_rng(0)
@@ -1592,6 +1861,9 @@ def _serve_path(arch: str, path: str) -> dict:
          peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
          release_demotions={**demote, "share_of_wall": demote["s"] / wall})
     _check_launches(counts, path)
+    want_counts = serve_launches(cfg)
+    check(counts == want_counts, f"{cfg.name}: launches {counts}, the trace "
+          f"predicts {want_counts}")
     plans = {rid: r.chunk_plan for rid, r in eng.reqs.items()}
     check(all(len(p) == 2 for p in plans.values()),
           f"{cfg.name}: every request must run two chunks: {plans}")
@@ -1608,57 +1880,78 @@ def _serve_path(arch: str, path: str) -> dict:
          scatter_device_us=_hist(eng, "op_device_us/scatter_chunk"),
          ttft_p50_s=s["ttft_p50"], ttft_p99_s=s["ttft_p99"],
          tbt_p50_s=s["tbt_p50"], clock="event")
-    if cfg.moe is not None:
+    n_moe = count_layers(cfg, ffn="moe")
+    if n_moe:
         # what capacity did to the served tokens (decode ticks route their
         # rows as one group of 4: capacity 1 per expert)
         emit(phase="serve", model=cfg.name,
-             routing=routing_summary(routes, cfg.n_layers, 4))
+             routing=routing_summary(routes, n_moe, 4))
     del routes
     first_tokens = {rid: toks[0] for rid, toks in eng.outputs.items()}
     del eng
     _free()
 
     # the plain path on the same weights, replaying the longest request;
-    # on Mamba-2 each K5 call of the kernel-path replay is also held to the
-    # plain scan on its own inputs
+    # each K1-K3 call (ATTN_GATED) and each K5 call of the kernel-path
+    # replay is also held to its plain version on its own inputs, the two
+    # gates nested on the hybrid so that each sees every call of its own
     rid = len(lens) - 1
+    n_mamba = count_layers(cfg, mixer="mamba")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gates = {}
 
     def replay():
         return _replay(cfg, params, ctx, prompts[rid], [first_tokens[rid]])
 
+    def ssd_gated():
+        out, gates["ssd_calls"] = ssd_call_gate(replay, n_mamba)
+        return out
+
+    run = ssd_gated if n_mamba else replay
+    faults = ("v_one_key_off",) + (("half_keys_dropped",)
+                                   if cfg.sliding_window else ())
     with moe_routes() as got_routes:
-        if path == "serve_mamba":
-            got, gate = ssd_call_gate(replay, cfg.n_layers)
-        elif path in ATTN_GATED:
-            got, gate = attn_call_gate(replay, *paged_gate_plan(
-                cfg.n_layers))
+        if path in ATTN_GATED:
+            got, gates["attention_calls"] = attn_call_gate(
+                run, *paged_gate_plan(count_layers(cfg, mixer="attn")),
+                faults=faults, window=cfg.sliding_window)
         else:
-            got = replay()
-    if path == "serve_mamba":
-        emit(phase="serve", model=cfg.name, ssd_calls=gate,
+            got = run()
+    t_gated = time.perf_counter() - t0
+    if "ssd_calls" in gates:
+        emit(phase="serve", model=cfg.name, ssd_calls=gates["ssd_calls"],
              tol={k: SSD_TOL[k] for k in ("bfloat16", "h_final")})
-        check(gate["ok"], f"{cfg.name}: a K5 call of the replay disagrees "
-              "with the plain scan, or a planted fault passed: "
-              f"{gate}")
-    if path in ATTN_GATED:
-        emit(phase="serve", model=cfg.name, attention_calls=gate,
+        check(gates["ssd_calls"]["ok"], f"{cfg.name}: a K5 call of the "
+              "replay disagrees with the plain scan, or a planted fault "
+              f"passed: {gates['ssd_calls']}")
+    if "attention_calls" in gates:
+        emit(phase="serve", model=cfg.name,
+             attention_calls=gates["attention_calls"],
              tol=KERNEL_TOL["bfloat16"])
-        check(gate["ok"], f"{cfg.name}: a K1-K3 call of the replay "
-              "disagrees with its plain version, or a planted fault "
-              f"passed: {gate}")
+        check(gates["attention_calls"]["ok"], f"{cfg.name}: a K1-K3 call "
+              "of the replay disagrees with its plain version, or a planted "
+              f"fault passed: {gates['attention_calls']}")
     check(int(torch.argmax(got[1])) == first_tokens[rid],
           f"{cfg.name}: replayed prefill disagrees with the engine's first "
           "token")
+    t0 = time.perf_counter()
     with moe_routes() as want_routes:
         want = _replay(cfg, params, ctx.with_(impl="ref"), prompts[rid],
                        [first_tokens[rid]])
-    if cfg.moe is not None:
+    t_plain = time.perf_counter() - t0
+    if n_moe:
         # bf16 attention differs between the paths by an ulp here and
         # there, which can flip a near-tied router choice
         emit(phase="serve", model=cfg.name, routing_vs_plain=routing_diff(
-            got_routes, want_routes, cfg.n_layers,
+            got_routes, want_routes, n_moe,
             ("chunk1", "chunk2_history", "decode_tick")))
     del got_routes, want_routes
+    emit(phase="serve", model=cfg.name, stage_s={
+        "serve": round(wall, 2), "gated_replay": round(t_gated, 2),
+        "plain_replay": round(t_plain, 2),
+        "path": round(time.perf_counter() - t_path, 2)},
+        replay_peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2))
     _logits_vs_plain("serve", ("chunk1", "chunk2_history", "decode_tick"),
                      got, want, LOGIT_TOL[arch])
     del params
@@ -1666,14 +1959,28 @@ def _serve_path(arch: str, path: str) -> dict:
     return counts
 
 
+# seconds for the six paths served last (Yi-9B ... Jamba-1.5-Large),
+# weight init included: they take 45-48 s on an H100 80GB HBM3 at 700 W
+# (PERF.md §6)
+SERVE_NEW_BUDGET_S = 90
+
+
 def phase_serve() -> dict:
-    # each path frees its weights before the next one starts
-    return {"serve_llama": _serve_path("llama3-8b", "serve_llama"),
-            "serve_mamba": _serve_path("mamba2-1.3b", "serve_mamba"),
-            "serve_moe": _serve_path("qwen2-moe-a2.7b", "serve_moe"),
-            "serve_chatglm": _serve_path("chatglm3-6b", "serve_chatglm"),
-            "serve_nemotron": _serve_path("nemotron-4-15b",
-                                          "serve_nemotron")}
+    """Every path of ``SERVED`` in turn (each frees its weights before
+    the next starts); prints each path's seconds and the six paths'
+    against their budget.  Returns the launch counts by path."""
+    new = [p for _, p in SERVED[5:]]
+    emit(phase="serve", paths=[p for _, p in SERVED], new_paths=new,
+         new_budget_s=SERVE_NEW_BUDGET_S)
+    out, seconds = {}, {}
+    for arch, path in SERVED:
+        t0 = time.time()
+        out[path] = _serve_path(arch, path)
+        seconds[path] = round(time.time() - t0, 2)
+    emit(phase="serve", seconds_by_path=seconds,
+         new_paths_s=round(sum(seconds[p] for p in new), 2),
+         new_budget_s=SERVE_NEW_BUDGET_S)
+    return out
 
 
 # ------------------------------------------------------- phase 3b: serve_sp
@@ -3845,15 +4152,19 @@ def _tokens_whisper(seed: int, ticks: int = 8) -> None:
 
 
 # ---------------------------------------------------------------- phase 5
-def _tokens_engine(arch: str, path: str, seed: int, lens, out_len: int):
-    """fp32 at two layers and full widths: the engine's greedy tokens on
-    the kernel path and on the plain path.  Returns (cfg, params, ctx,
-    prompts, kernel-path outputs)."""
+def _tokens_engine(arch: str, path: str, seed: int, lens, out_len: int,
+                   first: int = 0, max_seq: int = 4096,
+                   prefill_pool_blocks: int = 160):
+    """fp32 at two layers and full widths (a longer pattern: its
+    published layers ``first`` and ``first + 1``): the engine's greedy
+    tokens on the kernel path and on the plain path.  Returns (cfg,
+    params, ctx, prompts, kernel-path outputs)."""
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.models.params import init_params
     from repro_torch.models.sharding import make_context
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(cut_depth(get_config(arch), 2, first),
+                              dtype="float32")
     ctx = make_context("cuda")
     params = init_params(cfg, seed=seed, device=ctx.device)
     rng = np.random.default_rng(seed)
@@ -3863,12 +4174,13 @@ def _tokens_engine(arch: str, path: str, seed: int, lens, out_len: int):
     for impl in (None, "ref"):
         _reset_counts()
         eng = _serve(cfg, params, prompts, ctx.with_(impl=impl), out_len,
-                     max_seq=4096, prefill_pool_blocks=160,
+                     max_seq=max_seq, prefill_pool_blocks=prefill_pool_blocks,
                      host_pool_blocks=64)
         counts = _read_counts()
         outs[impl or "cuda"] = dict(eng.outputs)
         emit(phase="tokens", model=cfg.name, impl=impl or "cuda",
-             launches=counts,
+             layers=[f"{s.mixer}+{s.ffn}" for s in cfg.pattern]
+             * cfg.n_blocks, launches=counts,
              outputs={str(k): v for k, v in eng.outputs.items()})
         if impl is None:
             _check_launches(counts, path)
@@ -4015,6 +4327,23 @@ def phase_tokens():
     _tokens_engine("nemotron-4-15b", "serve_nemotron", 5,
                    (300, 1000, 2500, 4000), 8)
     _tokens_whisper(6)
+    # the rest of the registry.  Mixtral's trace holds a 5000-token prompt,
+    # past its 4096-token window (its second chunk's history and its ticks
+    # lose keys to the window); Jamba runs its published layers 3-4, a
+    # Mamba layer with the MoE FFN and the attention layer (layers 0-4 are
+    # 96 GB in fp32)
+    for arch, path, seed, lens, kw in (
+            ("yi-9b", "serve_yi", 7, (300, 1000, 2500, 4000), {}),
+            ("phi4-mini-3.8b", "serve_phi", 8, (300, 1000, 2500, 4000), {}),
+            ("llama3-70b", "serve_llama70b", 9, (300, 1000, 2500, 4000), {}),
+            ("qwen2-vl-72b", "serve_qwen2vl", 10, (300, 1000, 2500, 4000),
+             {}),
+            ("mixtral-8x22b", "serve_mixtral", 11, (300, 1000, 2500, 5000),
+             {"max_seq": 5120, "prefill_pool_blocks": 200}),
+            ("jamba-1.5-large-398b", "serve_jamba", 12,
+             (300, 1000, 2500, 4000), {"first": 3})):
+        _tokens_engine(arch, path, seed, lens, 8, **kw)
+        _free()
 
 
 # ------------------------------------------------------------ phase train

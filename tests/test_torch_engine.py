@@ -285,12 +285,16 @@ def test_engine_records_match_reference(scenario, reduced_params_cache):
 
 
 @pytest.mark.parametrize("arch", ["yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b",
-                                  "chatglm3-6b", "qwen2-vl-72b"])
+                                  "chatglm3-6b", "qwen2-vl-72b",
+                                  "jamba-1.5-large-398b", "mixtral-8x22b",
+                                  "phi4-mini-3.8b"])
 def test_serve_cli_runs_on_cpu(arch, capsys):
     """The port's launcher end to end on the plain path, for the reduced
     dense default (yi-9b), the attention-free Mamba-2, the MoE, ChatGLM3
-    (partial rotary, q/k/v bias) and Qwen2-VL (M-RoPE): every request gets
-    a chunk plan and tokens, and the latency summary prints."""
+    (partial rotary, q/k/v bias), Qwen2-VL (M-RoPE), the hybrid Jamba
+    (KV pages and SSM state in one request), Mixtral (an MoE under a
+    sliding window) and Phi-4-mini (padded heads): every request gets a
+    chunk plan and tokens, and the latency summary prints."""
     from repro_torch.launch import serve
     serve.main(["--device", "cpu", "--arch", arch, "--requests", "3",
                 "--output-len", "3"])

@@ -1,8 +1,14 @@
 #!/usr/bin/env python3
-"""How close the Qwen1.5-MoE serve logits can come to the plain path, on
+"""How close an MoE model's serve logits can come to the plain path, on
 one card.
 
-    python3 tools/moe_logits_floor.py [--seeds SEED ...] [--requests REQ ...]
+    python3 tools/moe_logits_floor.py [--arch ARCH] [--seeds SEED ...]
+        [--requests REQ ...]
+
+ARCH is qwen2-moe-a2.7b (the default), mixtral-8x22b or
+jamba-1.5-large-398b, at the depth phase serve runs it
+(``chip_smoke.served_config``: Mixtral's 8 layers, Jamba's published
+layers 0-4).
 
 chip_smoke.py's serve phase replays the smoke's longest request (request
 3: 6144 tokens as two 3072-token chunks, then one decode tick) through
@@ -32,6 +38,9 @@ plain path of the 4-position mesh with expert parallelism:
   planted_router_shift  the kernel path with every top-k choice moved to
                   the next expert;
   mesh_ep_planted_router_shift  the same on mesh_ep.
+
+The mesh ways run on Qwen only (the default ways of the other
+architectures leave them out).
 """
 
 from __future__ import annotations
@@ -46,7 +55,6 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 import nvcc_variants as nv  # noqa: E402  (tools/, beside this script)
 
-ARCH = "qwen2-moe-a2.7b"
 ROWS = ("chunk1", "chunk2_history", "decode_tick")
 
 
@@ -62,6 +70,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-moe-a2.7b",
+                    choices=["qwen2-moe-a2.7b", "mixtral-8x22b",
+                             "jamba-1.5-large-398b"])
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1])
     ap.add_argument("--requests", type=int, nargs="*", default=[3, 2, 1])
     ap.add_argument("--ways", nargs="*", default=None,
@@ -77,7 +88,6 @@ def main(argv=None) -> int:
         print("moe_logits_floor: needs a CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
-    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import moe
@@ -86,7 +96,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(json.dumps({"nvidia_smi": nv.nvidia_smi()}), flush=True)
-    tol = chip_smoke.LOGIT_TOL[ARCH]
+    tol = chip_smoke.LOGIT_TOL[args.arch]
     kept = {"ops": {n: getattr(ops, n) for n in (
         "attention", "paged_prefill_attention", "paged_decode_attention")},
         "moe": {"top_k_stable": moe.top_k_stable}}
@@ -130,7 +140,11 @@ def main(argv=None) -> int:
     modules = {"ops": ops, "moe": moe}
     if args.ways:
         ways = {n: w for n, w in ways.items() if n in args.ways}
-    cfg = get_config(ARCH)
+    elif args.arch != "qwen2-moe-a2.7b":
+        ways = {n: w for n, w in ways.items() if "mesh" not in n}
+    cfg, cut = chip_smoke.served_config(args.arch)
+    print(json.dumps({"arch": args.arch, "depth_cut": cut}), flush=True)
+    n_moe = chip_smoke.count_layers(cfg, ffn="moe")
     ctx = make_context("cuda")
     plain = ctx.with_(impl="ref")
     mesh = chip_smoke._sp_context()
@@ -164,8 +178,8 @@ def main(argv=None) -> int:
                     for mod, fns in kept.items():
                         for fn_name, fn in fns.items():
                             setattr(modules[mod], fn_name, fn)
-                diff = chip_smoke.routing_diff(routes, want_routes,
-                                               cfg.n_layers, ROWS)
+                diff = chip_smoke.routing_diff(routes, want_routes, n_moe,
+                                               ROWS)
                 rows = {}
                 for row, a, b in zip(ROWS, got, want):
                     err = float((a - b).abs().max())
@@ -178,7 +192,8 @@ def main(argv=None) -> int:
                                      sum(diff[row]["topk_set_differs"]),
                                  "keep_differs":
                                      sum(diff[row]["keep_differs"])}
-                print(json.dumps({"seed": seed, "request": req, "way": name,
+                print(json.dumps({"arch": args.arch, "seed": seed,
+                                  "request": req, "way": name,
                                   "against": args.against,
                                   "tokens": len(prompt),
                                   "logits_vs_plain": rows}), flush=True)
