@@ -96,7 +96,7 @@ from repro_torch.serving.kv_offload import (HostKVPool, HostPrefixCache,
                                       choose_preempt_policy)
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.simulator import ClusterSpec, Policy, Simulator
-from repro_torch.serving.telemetry import OpProfiler
+from repro_torch.serving.telemetry import OpProfiler, write_trace
 from repro_torch.serving.transfer import TransferManager
 
 
@@ -449,7 +449,9 @@ class ServingEngine(Simulator):
         self.chunk_log: Dict[int, List[dict]] = {}
         # optional profiling around the chunk forward and the page ops
         # (fused tick, chunk scatter, restripe all-to-all) -> named
-        # op_wall_us/* histograms in the metrics registry
+        # op_wall_us/* (op_device_us/* on the card) histograms in the
+        # metrics registry, and the host phases of each chunk and tick
+        # -> host_us/chunk.* and host_us/tick.*
         self.profiler = OpProfiler(self.metrics, enabled=profile_ops,
                                    device=ctx.device)
         # sequence-parallel sharded pools: prefill stripes over sp_axis
@@ -620,7 +622,19 @@ class ServingEngine(Simulator):
         while self.events:
             t, _, kind, payload = heapq.heappop(self.events)
             getattr(self, f"_on_{kind}")(t, payload)
+        self.profiler.collect(block=True)
         return self.outputs
+
+    def export_trace(self, path: Optional[str] = None) -> dict:
+        """The simulator's trace document, plus the profiler's host phase
+        spans under ``hostEvents`` when profiling was on (perf_counter
+        microseconds, apart from ``traceEvents``' modelled clock)."""
+        doc = super().export_trace()
+        if self.profiler.enabled:
+            doc["hostEvents"] = self.profiler.to_chrome()
+        if path is not None:
+            write_trace(path, doc)
+        return doc
 
     def _push(self, t: float, kind: str, payload) -> None:
         # last-write-wins tick coalescing: remember the latest scheduled
@@ -742,6 +756,7 @@ class ServingEngine(Simulator):
         return pos[None]
 
     def _on_chunk_start(self, now: float, payload) -> None:
+        ph = self.profiler.phases("chunk")
         rid, ci, gen = payload
         if gen != self.plan_gen.get(rid):
             return                          # superseded by a requeue
@@ -776,6 +791,7 @@ class ServingEngine(Simulator):
         pos = self._positions(st.off, L)
         alloc = self.pblocks.allocs[rid]
         hist_bt = alloc[:self.pblocks.blocks_for(st.off)]
+        ph.mark("prep")
         with self.profiler.op("prefill_chunk"):
             st.logits, new_caches, st.aux = prefill_chunk_paged(
                 self.params, self.cfg, self.ctx, toks, pos,
@@ -783,6 +799,7 @@ class ServingEngine(Simulator):
         with self.profiler.op("scatter_chunk"):
             self.pkv.write_chunk(alloc, new_caches, pos,
                                  active=self.pblocks.active_shards)
+        ph.mark("launch")
         st.off += L
         self.chunk_log.setdefault(rid, []).append({
             "chunk": ci, "len": L, "sp": sp,
@@ -803,9 +820,12 @@ class ServingEngine(Simulator):
                 # already-emitted tokens rather than re-emitting them
                 self.outputs[rid] = prior
             else:
+                ph.mark("post")
                 self.outputs[rid] = [int(torch.argmax(
                     st.logits[0, 0, :self.cfg.vocab_size]))]
+                ph.mark("wait")
             self._resume_seq.pop(rid, None)
+        ph.end("post")
 
     def _prefill_backpressure(self, now: float, rid: int, payload) -> None:
         """Prefill page pool exhausted: apply backpressure, never crash.
@@ -1775,6 +1795,7 @@ class ServingEngine(Simulator):
         return "fused" if self._fused_tick == did else "standalone"
 
     def _on_decode_tick(self, now: float, did: int) -> None:
+        ph = self.profiler.phases("tick")
         d = self.dstates[did]
         inst = self.decodes[did]
         fused = self._fused_tick == did
@@ -1829,14 +1850,19 @@ class ServingEngine(Simulator):
                    if self.cfg.rope_type == "mrope" else clen[:, None])
             bt = d.block_table(active)
             caches = d.build_caches(active, bt)
+            ph.mark("prep")
             with self.profiler.op("fused_tick" if fused
                                   else "decode_tick"):
                 logits, _, new_caches = forward(
                     self.params, self.cfg, self.ctx, toks, pos, "decode",
                     caches=caches, cache_len=clen)
                 d.absorb(new_caches, active)
-            nxt = torch.argmax(logits[:, 0, :self.cfg.vocab_size],
-                               dim=-1).cpu().numpy()
+            nxt = torch.argmax(logits[:, 0, :self.cfg.vocab_size], dim=-1)
+            ph.mark("launch")
+            nxt = nxt.cpu().numpy()
+            ph.mark("wait")
+            # the readback waited for every op queued before it
+            self.profiler.collect()
             for r in active:
                 m = d.meta[r]
                 m.tokens.append(m.last_token)   # its KV landed this tick
@@ -1870,3 +1896,5 @@ class ServingEngine(Simulator):
             self.fabric.release_borrowed(
                 did, max(0, d.blocks.effective_free()
                          - self._watermark_blocks(d)))
+        if active:
+            ph.end("post")

@@ -28,6 +28,13 @@ all report through:
   prefix promotions and interconnect bytes, plus a ``leases_active``
   gauge sampled on every grant/recall.
 
+* **OpProfiler** — optional timing on the host's and the card's clocks
+  (``profile_ops``): CUDA events around the engine's device work, read
+  once they have completed (the host never waits on them), and phase
+  clocks that split a handler's host time (``host_us/tick.*``,
+  ``host_us/chunk.*``) on ``time.perf_counter``, kept apart from the
+  tracer's modelled clock.
+
 * **TTFT/TBT attribution** — ``Tracer.attribution`` decomposes a
   request's TTFT into queueing + chunk compute + transfer +
   preempt-requeue + swap-wait (+ decode-resident, for preempted
@@ -51,14 +58,15 @@ from __future__ import annotations
 import json
 import math
 import time
+from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Deque, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
     "ATTRIBUTION_ORDER", "Counter", "FABRIC_METRICS", "Gauge",
-    "Histogram", "MetricsRegistry", "OpProfiler", "TraceEvent", "Tracer",
-    "attribution_total", "build_trace_doc", "exact_remainder",
+    "Histogram", "MetricsRegistry", "OpProfiler", "PHASES", "TraceEvent",
+    "Tracer", "attribution_total", "build_trace_doc", "exact_remainder",
 ]
 
 # Canonical metric names published by the cluster KV fabric
@@ -193,19 +201,88 @@ class MetricsRegistry:
         }
 
 
+# the phases a handler's clock splits it into (``OpProfiler.phases``):
+# host work before the device calls, their launches, the wait for a
+# readback, and the host work after it
+PHASES = ("prep", "launch", "wait", "post")
+
+
+class _NullPhases:
+    """The phase clock of a disabled profiler: no clock read, nothing
+    kept (one shared instance)."""
+
+    __slots__ = ()
+
+    def mark(self, phase: str) -> None:
+        pass
+
+    def end(self, phase: str) -> None:
+        pass
+
+
+_NULL_PHASES = _NullPhases()
+
+
+class _Phases:
+    """One handler's phase clock, started when it is made.  ``mark``
+    closes the segment since the last mark (or the start) as ``phase``;
+    ``end`` closes the last one and feeds each phase's summed time into
+    ``host_us/<family>.<phase>``, zero for a phase with no segment, so
+    every phase counts one sample a handler.  A phase may take several
+    segments (a handler's host work before and after its readback)."""
+
+    __slots__ = ("prof", "family", "t", "acc")
+
+    def __init__(self, prof: "OpProfiler", family: str):
+        self.prof = prof
+        self.family = family
+        self.acc: Dict[str, float] = {}
+        self.t = time.perf_counter()
+
+    def mark(self, phase: str) -> None:
+        t = time.perf_counter()
+        self.prof.spans.append((f"{self.family}.{phase}", self.t, t))
+        self.acc[phase] = self.acc.get(phase, 0.0) + (t - self.t)
+        self.t = t
+
+    def end(self, phase: str) -> None:
+        self.mark(phase)
+        for p in PHASES:
+            if p not in self.acc:
+                self.prof.spans.append((f"{self.family}.{p}", self.t,
+                                        self.t))
+            self.prof.metrics.hist(f"host_us/{self.family}.{p}").observe(
+                self.acc.get(p, 0.0) * 1e6)
+
+
 class OpProfiler:
-    """Optional timing hooks around the engine's device work.  Disabled it
-    is a no-op context manager.  Enabled on a CUDA device it records a
-    pair of CUDA events around the op and feeds the device time into
-    ``op_device_us/<name>`` (the host thread waits for the end event, so
-    profiling serialises the host with the card); elsewhere it feeds host
-    wall clock into ``op_wall_us/<name>``."""
+    """Optional timing hooks around the engine's device work and its host
+    phases.  Disabled, ``op`` is a no-op context manager and ``phases``
+    the shared null clock.  Enabled on a CUDA device, ``op`` records a
+    pair of CUDA events around the op and queues it without waiting;
+    ``collect`` feeds the device time of each finished pair into
+    ``op_device_us/<name>``.  Elsewhere ``op`` feeds host wall clock into
+    ``op_wall_us/<name>``.
+
+    ``phases(family)`` gives a handler a phase clock on
+    ``time.perf_counter`` (``_Phases``): each phase's host microseconds
+    go into ``host_us/<family>.<phase>``, and each segment is kept as
+    ``(name, t0, t1)`` in perf_counter seconds, the last ``KEEP_SPANS``
+    of them, for ``to_chrome``."""
+
+    KEEP_SPANS = 1 << 16
 
     def __init__(self, metrics: MetricsRegistry, enabled: bool = False,
                  device=None):
         self.metrics = metrics
         self.enabled = enabled
         self.device = device
+        self.spans: Deque[Tuple[str, float, float]] = deque(
+            maxlen=self.KEEP_SPANS)
+        self.pending: Deque[tuple] = deque()    # (name, start, end)
+
+    def phases(self, family: str):
+        return _Phases(self, family) if self.enabled else _NULL_PHASES
 
     @contextmanager
     def op(self, name: str):
@@ -221,9 +298,7 @@ class OpProfiler:
                 yield
             finally:
                 end.record()
-                end.synchronize()
-                self.metrics.hist(f"op_device_us/{name}").observe(
-                    start.elapsed_time(end) * 1e3)
+                self.pending.append((name, start, end))
             return
         t0 = time.perf_counter()
         try:
@@ -231,6 +306,38 @@ class OpProfiler:
         finally:
             self.metrics.hist(f"op_wall_us/{name}").observe(
                 (time.perf_counter() - t0) * 1e6)
+
+    def collect(self, block: bool = False) -> None:
+        """Feed the queued CUDA event pairs into ``op_device_us/<name>``,
+        in the order they were recorded: every pair with ``block``, else
+        those whose end event has completed (one stream: the first pair
+        still running holds the rest)."""
+        q = self.pending
+        while q and (block or q[0][2].query()):
+            name, start, end = q.popleft()
+            end.synchronize()
+            self.metrics.hist(f"op_device_us/{name}").observe(
+                start.elapsed_time(end) * 1e3)
+
+    def to_chrome(self) -> List[dict]:
+        """The kept spans as Chrome ``ph="X"`` events in microseconds of
+        perf_counter, on a ``host`` process with one track a span family
+        (the name's part before the first dot), after the ``M`` records
+        naming them."""
+        pid, tids, meta, out = 1, {}, [], []
+        for name, t0, t1 in self.spans:
+            family = name.split(".", 1)[0]
+            if family not in tids:
+                tids[family] = len(tids)
+                meta.append({"ph": "M", "name": "thread_name", "pid": pid,
+                             "tid": tids[family], "args": {"name": family}})
+            out.append({"name": name, "cat": "host", "ph": "X", "pid": pid,
+                        "tid": tids[family], "ts": t0 * 1e6,
+                        "dur": (t1 - t0) * 1e6})
+        if out:
+            meta.insert(0, {"ph": "M", "name": "process_name", "pid": pid,
+                            "tid": 0, "args": {"name": "host"}})
+        return meta + out
 
 
 # ----------------------------------------------------------- attribution

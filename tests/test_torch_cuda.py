@@ -1324,3 +1324,27 @@ def test_train_step_on_card(arch):
     step = make_train_step(cfg, ctx, AdamW())
     with pytest.raises(RuntimeError, match="unused"):
         step(trainable(params), AdamW().init(params), batch)
+
+
+@pytest.mark.cuda
+def test_op_profiler_does_not_wait_on_the_card():
+    """``OpProfiler.op`` on the card queues its CUDA events and returns
+    while the op still runs; ``collect()`` leaves an unfinished pair
+    queued, ``collect(block=True)`` resolves it into one
+    ``op_device_us`` sample of the op's device time."""
+    dev = _card()
+    from repro_torch.serving.telemetry import MetricsRegistry, OpProfiler
+    m = MetricsRegistry()
+    prof = OpProfiler(m, enabled=True, device=dev)
+    torch.cuda.synchronize()
+    with prof.op("sleep"):
+        # 1e8 cycles: at least 50 ms at the H100's highest clock, 1.98 GHz
+        torch.cuda._sleep(int(1e8))
+    (name, _, end), = prof.pending
+    assert name == "sleep" and not end.query()
+    prof.collect()
+    assert len(prof.pending) == 1 and "op_device_us/sleep" not in m.hists
+    prof.collect(block=True)
+    assert not prof.pending
+    h = m.hists["op_device_us/sleep"]
+    assert h.count == 1 and h.vmin >= 40e3

@@ -14,6 +14,7 @@ bit-equal (ROADMAP Queue 3), so the reference's property test, which
 draws targets freely, is not copied."""
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -81,15 +82,42 @@ def test_exact_remainder_on_reachable_targets():
 
 def test_op_profiler_disabled_and_enabled():
     """tests/test_telemetry.py:75: host wall clock where there is no card
-    (the card's branch times by CUDA events, ``op_device_us``)."""
+    (the card's branch times by CUDA events, ``op_device_us``); and the
+    phase clock: nothing at all when disabled, one sample a phase a
+    handler when enabled, a phase's segments summed."""
     m = t_tel.MetricsRegistry()
-    with t_tel.OpProfiler(m, enabled=False).op("x"):
+    off = t_tel.OpProfiler(m, enabled=False)
+    with off.op("x"):
         pass
+    ph = off.phases("f")
+    assert ph is off.phases("g")            # the one shared null clock
+    ph.mark("prep")
+    ph.end("post")
     assert "op_wall_us/x" not in m.hists
-    with t_tel.OpProfiler(m, enabled=True).op("x"):
+    assert not off.spans and not m.hists and off.to_chrome() == []
+    on = t_tel.OpProfiler(m, enabled=True)
+    with on.op("x"):
         pass
+    on.collect(block=True)                  # nothing queued off the card
     assert m.hist("op_wall_us/x").count == 1
     assert not any(k.startswith("op_device_us/") for k in m.hists)
+    ph = on.phases("f")
+    ph.mark("prep")
+    ph.mark("post")
+    ph.mark("wait")
+    ph.end("post")
+    names = [n for n, _, _ in on.spans]
+    assert names == ["f.prep", "f.post", "f.wait", "f.post", "f.launch"]
+    for p in t_tel.PHASES:
+        assert m.hist(f"host_us/f.{p}").count == 1
+    assert m.hist("host_us/f.launch").total == 0.0
+    post = sum(t1 - t0 for n, t0, t1 in on.spans if n == "f.post")
+    assert m.hist("host_us/f.post").total == pytest.approx(post * 1e6)
+    t_first, t_last = on.spans[0][1], on.spans[3][2]
+    assert all(t_first <= t0 <= t1 <= t_last for _, t0, t1 in on.spans)
+    xs = [e for e in on.to_chrome() if e["ph"] == "X"]
+    assert [e["name"] for e in xs] == names
+    assert {e["tid"] for e in xs} == {0}
 
 
 # --------------------------------------------------------- tracer basics
@@ -278,7 +306,7 @@ def P(reduced_params_cache, reference_compile_cache):
             "port": (cfg, params_from_numpy(jp, cfg, device="cpu"))}
 
 
-def _traced(P, side, n_decode, jobs, preempt=(), **kw):
+def _traced(P, side, n_decode, jobs, preempt=(), hook=None, **kw):
     Eng, Req, sim, cp, table1, extra = SIDES[side]
     cfg, params = P[side]
     spec = sim.ClusterSpec(n_prefill=8, n_decode=n_decode,
@@ -290,6 +318,8 @@ def _traced(P, side, n_decode, jobs, preempt=(), **kw):
                        output_len=out), prompt)
     for rid, at in preempt:
         eng.preempt(rid, at=at)
+    if hook is not None:
+        hook(eng)
     eng.serve()
     return eng
 
@@ -303,19 +333,25 @@ def _run_pair(P, n_decode, jobs, preempt=(), **kw):
     return {"ref": ref, "port": port}
 
 
+# tests/test_telemetry.py:268's engine settings
+PRESSURE_KW = dict(max_batch=4, max_seq=64, decode_hosts={0: tuple(range(8))},
+                   piggyback=True, preempt_watermark=0.3,
+                   preempt_policy="swap", prefill_pool_blocks=64)
+
+
+def _pressure_jobs(P):
+    rng = np.random.default_rng(1)
+    vocab = P["port"][0].vocab_size
+    return [(i, a, rng.integers(0, vocab, 60), 24)
+            for i, a in enumerate((0.0, 0.05, 0.1, 0.15))]
+
+
 @pytest.fixture(scope="module")
 def traced_pressure_run(P):
     """tests/test_telemetry.py:268: a colocated piggyback run under block
     pressure with swap preemption — chunks, fused and deferred ticks,
     swap round trips, transfers and finishes — on both engines."""
-    rng = np.random.default_rng(1)
-    vocab = P["port"][0].vocab_size
-    jobs = [(i, a, rng.integers(0, vocab, 60), 24)
-            for i, a in enumerate((0.0, 0.05, 0.1, 0.15))]
-    return _run_pair(P, 1, jobs, max_batch=4, max_seq=64,
-                     decode_hosts={0: tuple(range(8))}, piggyback=True,
-                     preempt_watermark=0.3, preempt_policy="swap",
-                     prefill_pool_blocks=64)
+    return _run_pair(P, 1, _pressure_jobs(P), **PRESSURE_KW)
 
 
 @pytest.fixture(scope="module")
@@ -498,3 +534,110 @@ def test_engine_run_trace_doc_export(tmp_path, traced_pressure_run):
     causes = [c for rec in loaded["requests"].values()
               for c in rec["tbt_causes"]]
     assert "fused" in causes or "deferral" in causes or "swap" in causes
+
+
+# ------------------------------------------- the host phases of a handler
+@pytest.fixture(scope="module")
+def profiled_pressure_run(P):
+    """The pressure run on the port alone with ``profile_ops=True``, the
+    wall clock read around every chunk and tick handler (fused ticks,
+    which run inside a chunk's handler, included)."""
+    walls = {"tick": [], "chunk": []}
+
+    def hook(eng):
+        for family, kind in (("tick", "decode_tick"),
+                             ("chunk", "chunk_start")):
+            fn = getattr(eng, f"_on_{kind}")
+
+            def timed(t, payload, _fn=fn, _out=walls[family]):
+                t0 = time.perf_counter()
+                _fn(t, payload)
+                _out.append((t0, time.perf_counter()))
+            setattr(eng, f"_on_{kind}", timed)
+
+    eng = _traced(P, "port", 1, _pressure_jobs(P), hook=hook,
+                  profile_ops=True, **PRESSURE_KW)
+    return {"eng": eng, "walls": walls}
+
+
+def test_profiling_changes_no_record(traced_pressure_run,
+                                     profiled_pressure_run):
+    """The profiled run's tokens, logs, tracer events, counters, gauges
+    and other histograms are the unprofiled port run's."""
+    eng, plain = profiled_pressure_run["eng"], traced_pressure_run["port"]
+    got, want = _records(eng), _records(plain)
+    for key in want:
+        assert got[key] == want[key], key
+    assert json.dumps(eng.tracer.to_chrome()) == \
+        json.dumps(plain.tracer.to_chrome())
+    snap, base = eng.metrics.snapshot(), plain.metrics.snapshot()
+    assert snap["counters"] == base["counters"]
+    assert snap["gauges"] == base["gauges"]
+    assert {k: v for k, v in snap["histograms"].items()
+            if not k.startswith(("host_us/", "op_wall_us/"))} \
+        == base["histograms"]
+
+
+def test_phase_counts_are_the_handlers_that_ran(profiled_pressure_run):
+    """One sample a phase for every tick with live rows, fused and
+    standalone, and for every chunk that ran; each phase at least 0."""
+    eng = profiled_pressure_run["eng"]
+    ms = eng.mixed_stats
+    assert ms["piggyback_ticks"] > 0 and ms["standalone_ticks"] > 0
+    n_chunks = sum(len(v) for v in eng.chunk_log.values())
+    for family, n in (("tick", ms["piggyback_ticks"]
+                       + ms["standalone_ticks"]), ("chunk", n_chunks)):
+        for p in t_tel.PHASES:
+            h = eng.metrics.hists[f"host_us/{family}.{p}"]
+            assert h.count == n, (family, p)
+            assert h.vmin >= 0.0, (family, p)
+    assert eng.metrics.hists["host_us/tick.wait"].vmax > 0.0
+    # the first token's readback runs on every request's last chunk
+    assert eng.metrics.hists["host_us/chunk.wait"].vmax > 0.0
+
+
+def test_phases_partition_within_each_handler(profiled_pressure_run):
+    """Every kept span lies inside a handler of its family, and a
+    handler's phases sum to no more than the wall clock around it; every
+    handler that recorded phases recorded all four."""
+    eng, walls = profiled_pressure_run["eng"], profiled_pressure_run["walls"]
+    spans = list(eng.profiler.spans)
+    for family, windows in walls.items():
+        mine = [s for s in spans if s[0].startswith(family + ".")]
+        seen = 0
+        for w0, w1 in windows:
+            inside = [s for s in mine if w0 <= s[1] <= s[2] <= w1]
+            if not inside:
+                continue
+            seen += len(inside)
+            assert {s[0] for s in inside} == {
+                f"{family}.{p}" for p in t_tel.PHASES}
+            assert sum(t1 - t0 for _, t0, t1 in inside) <= w1 - w0
+        assert seen == len(mine), family
+
+
+def test_profiling_off_keeps_no_phase(traced_pressure_run):
+    eng = traced_pressure_run["port"]
+    assert not any(k.startswith("host_us/") for k in eng.metrics.hists)
+    assert not eng.profiler.spans
+    assert "hostEvents" not in eng.export_trace()
+
+
+def test_host_spans_export_apart_from_trace_events(traced_pressure_run,
+                                                   profiled_pressure_run):
+    """``to_chrome`` gives one ``X`` event a kept span on the ``host``
+    process, a track a family; the trace document carries them under
+    ``hostEvents`` and its ``traceEvents`` are the unprofiled run's."""
+    eng = profiled_pressure_run["eng"]
+    host = eng.profiler.to_chrome()
+    xs = [e for e in host if e["ph"] == "X"]
+    assert len(xs) == len(eng.profiler.spans)
+    assert all(e["dur"] >= 0.0 and e["cat"] == "host" for e in xs)
+    tracks = {e["args"]["name"]: e["tid"] for e in host
+              if e["name"] == "thread_name"}
+    assert set(tracks) == {"tick", "chunk"}
+    assert all(e["tid"] == tracks[e["name"].split(".")[0]] for e in xs)
+    doc = eng.export_trace()
+    assert doc["hostEvents"] == host
+    assert doc["traceEvents"] == traced_pressure_run["port"].export_trace()[
+        "traceEvents"]
