@@ -202,10 +202,11 @@ def ssd(x, dt, A, Bm, Cm, *, h0=None, chunk: int = 128,
     return ssd_scan(x, dt, A, Bm, Cm, h0=h0, chunk=chunk)
 
 
-def ssd_decode(x, dt, A, Bm, Cm, h):
+def ssd_decode(x, dt, A, Bm, Cm, h, out=None):
     """One-token SSD state update, O(1) per token: plain PyTorch on every
-    device, as in the reference (which has no kernel for it)."""
-    return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, h)
+    device, as in the reference (which has no kernel for it); ``out``
+    takes the new state."""
+    return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, h, out=out)
 
 
 merge_partials = _ref.merge_partials

@@ -369,14 +369,15 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, *, chunk: int = 64, h0=None,
     return (y, h) if return_state else y
 
 
-def ssd_decode_ref(x, dt, A, Bm, Cm, h):
+def ssd_decode_ref(x, dt, A, Bm, Cm, h, out=None):
     """One-token SSD state update.  x (B, H, P), dt (B, H), Bm/Cm
-    (B, G, N), h (B, H, P, N) -> (y (B, H, P), h_new fp32)."""
+    (B, G, N), h (B, H, P, N) -> (y (B, H, P), h_new fp32); with ``out``
+    (B, H, P, N) fp32 the new state is written there and returned."""
     rep = x.shape[1] // Bm.shape[1]
     Bf, Cf = _rep_heads(Bm, rep, 1), _rep_heads(Cm, rep, 1)
     dtf = dt.float()
     decay = torch.exp(dtf * A.float()[None, :])                # (B, H)
-    h_new = (h.float() * decay[:, :, None, None]
-             + (dtf[:, :, None] * x.float())[..., None] * Bf[:, :, None, :])
+    h_new = torch.mul(h.float(), decay[:, :, None, None], out=out)
+    h_new += (dtf[:, :, None] * x.float())[..., None] * Bf[:, :, None, :]
     y = torch.einsum("bhn,bhpn->bhp", Cf, h_new).to(x.dtype)
     return y, h_new

@@ -7,6 +7,8 @@ stored in ``cfg.dtype``.  Computation dtype follows the input.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +51,16 @@ def mrope_sections(rot: int, sections) -> torch.Tensor:
     return (idx[None] >= bounds[:, None]).sum(0).clamp(0, 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_one_hot(rot: int, sections: tuple, device: torch.device
+                   ) -> torch.Tensor:
+    """(rot/2, 3) fp32 one-hot of ``mrope_sections`` on ``device``, made
+    once: a copy from host memory inside a captured decode tick would
+    read host memory that is gone when the graph replays."""
+    return torch.nn.functional.one_hot(
+        mrope_sections(rot, sections), 3).to(torch.float32).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int32, or (3, B, S) for M-RoPE.
@@ -70,9 +82,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
         if positions.dim() != 3:
             raise ValueError("mrope needs (3, B, S) positions")
         ang = positions[..., None].float() * inv           # (3, B, S, rot/2)
-        one_hot = torch.nn.functional.one_hot(
-            mrope_sections(rot, cfg.mrope_sections), 3).to(
-                ang.dtype).to(x.device)                     # (rot/2, 3)
+        one_hot = _mrope_one_hot(rot, tuple(cfg.mrope_sections),
+                                 x.device)                  # (rot/2, 3)
         ang = torch.einsum("tbsk,kt->bsk", ang, one_hot)    # (B, S, rot/2)
     else:
         if positions.dim() == 3:

@@ -7,7 +7,10 @@ divides over ``ctx.sp_axis`` into whole scan chunks, the sequence-parallel
 scan ``sp_ssd`` (K5 per position, core/ring_attention.py), its heads split
 over ``ctx.tp_axis`` where G == 1 and they divide it; other chunks fall
 back to one scan.  Decode keeps a (conv window,
-SSD state) cache per layer and steps it in plain PyTorch.  A CDSP chunk
+SSD state) cache per layer and steps it in plain PyTorch; a decode cache
+that carries a ``"next"`` pair of buffers gets the new state written
+there in place (the serving engine's batched state, whose tick reads one
+buffer and writes the other).  A CDSP chunk
 takes the previous chunk's conv window and state as its cache and hands
 its own on: that is how an SSM's prefill is split into chunks.
 """
@@ -79,9 +82,11 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     Bm = xbc_c[..., d_in:d_in + G * N].reshape(B, -1, G, N)
     Cm = xbc_c[..., d_in + G * N:].reshape(B, -1, G, N)
 
+    nxt = cache.get("next") if mode == "decode" else None
     if mode == "decode":
         y, h_new = ops.ssd_decode(xs[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0],
-                                  cache["ssm"])
+                                  cache["ssm"],
+                                  out=None if nxt is None else nxt["ssm"])
         y = y[:, None]                                          # (B,1,H,P)
     else:
         h0 = None if cache is None else cache.get("ssm")
@@ -102,6 +107,9 @@ def mamba_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     out = y @ p["wout"]
 
     new_cache = None
-    if mode in ("prefill", "decode"):
+    if nxt is not None:
+        nxt["conv"].copy_(new_conv)
+        new_cache = nxt
+    elif mode in ("prefill", "decode"):
         new_cache = {"conv": new_conv.to(dtype), "ssm": h_new}
     return out, new_cache

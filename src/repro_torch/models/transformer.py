@@ -154,10 +154,11 @@ def _stack_forward(x, blocks_p, cfg: ModelConfig, ctx: ExecContext,
 
 
 def _restack(per_block: list, caches, mode: str):
-    """Stack per-block caches back over n_blocks.  A paged decode pool, or
-    a dense decode cache in sequence shards, is already the caller's
-    stacked tensor (each block wrote its slice in place), and decode reads the cross KV without changing it, so both
-    are handed back as they are rather than copied."""
+    """Stack per-block caches back over n_blocks.  A paged decode pool, a
+    dense decode cache in sequence shards, or a Mamba-2 decode state with
+    a ``"next"`` buffer is already the caller's stacked tensor (each block
+    wrote its slice in place), and decode reads the cross KV without
+    changing it, so all are handed back as they are rather than copied."""
     if mode not in ("prefill", "decode"):
         return None
     out = {}
@@ -173,6 +174,10 @@ def _restack(per_block: list, caches, mode: str):
                 ent[part] = {"k": src["k"], "v": src["v"]}
             elif src is not None and part == "cross":
                 ent[part] = src
+            elif src is not None and "next" in src:
+                # a decode state written in place into the caller's spare
+                # buffer (models/ssm.py)
+                ent[part] = src["next"]
             else:
                 ent[part] = _stack([blk[key][part] for blk in per_block])
         out[key] = ent

@@ -97,14 +97,13 @@ from repro_torch.serving.kv_offload import (HostKVPool, HostPrefixCache,
 from repro_torch.serving.request import Phase, Request
 from repro_torch.serving.simulator import ClusterSpec, Policy, Simulator
 from repro_torch.serving.telemetry import OpProfiler, write_trace
+from repro_torch.serving.tick_graph import (TickGraphs, graph_eligible,
+                                            table_width)
 from repro_torch.serving.transfer import TransferManager
 
-
-def _tree_map(fn, *trees):
-    """Map ``fn`` over the leaves of nested dicts of tensors."""
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+# the model's forward as this module imported it: a tick is captured only
+# while the module's ``forward`` is still this function
+_MODEL_FORWARD = forward
 
 
 @dataclass
@@ -149,9 +148,18 @@ class PagedDecodeState:
     attention consumes the table natively (models/attention.py), scatters
     the new token's K/V into its page, and returns the updated pools,
     which ``absorb`` folds back.  No dense ``(batch, max_seq)`` KV view is
-    built at any point.  Non-attention per-request state (SSD state, conv
-    window, cross KV) is O(1) in sequence length and kept as small
-    per-request trees, stacked per tick.
+    built at any point.  Non-attention state (Mamba-2's SSD state and conv
+    window, O(1) in sequence length) lives in two batched buffers per
+    layer, (n_blocks, max_batch, ...) each, indexed by the row: ``insert``
+    writes a row into the current one, ``evict`` zeros it, the tick reads
+    the current buffer and writes the other, and ``absorb`` flips which is
+    current (and zeros the rows that were idle), so rows outside the batch
+    always hold zeros.
+
+    ``graphs`` (serving/tick_graph.TickGraphs) holds the static tick
+    inputs and captured ticks where the engine's layout can be captured;
+    the table of such an instance takes a width from
+    ``tick_graph.table_width``.
     """
 
     def __init__(self, cfg: ModelConfig, max_batch: int, max_seq: int,
@@ -184,7 +192,11 @@ class PagedDecodeState:
                                    kv_head_shards=self.kv.kv_head_shards)
         self.slots: List[Optional[int]] = [None] * max_batch   # row -> rid
         self.meta: Dict[int, _DecodeMeta] = {}
-        self.aux: Dict[int, dict] = {}     # rid -> non-attn cache tree (B=1)
+        # layer -> {part: (nb, max_batch, ...)}, the current buffer and the
+        # one the next tick writes; made at the first insert
+        self.state: List[Dict[str, Dict[str, torch.Tensor]]] = [{}, {}]
+        self.cur = 0
+        self.graphs: Optional[TickGraphs] = None
         self.transfers = TransferManager(n_backends=n_backends,
                                          bandwidth=bandwidth)
 
@@ -254,42 +266,58 @@ class PagedDecodeState:
         self.meta[rid] = _DecodeMeta(row, cache_len, last_token, blocks,
                                      shared_tokens,
                                      [int(t) for t in tokens])
-        aux = {}
         for i, spec in enumerate(self.cfg.pattern):
-            src = (aux_history or {}).get(str(i), {})
-            ent = {}
-            if spec.mixer != "attn" and "self" in src:
-                ent["self"] = src["self"]
-            if "cross" in src:
-                ent["cross"] = src["cross"]
-            if ent:
-                aux[str(i)] = ent
-        self.aux[rid] = aux
+            if spec.mixer == "attn":
+                continue
+            key = str(i)
+            src = aux_history[key]["self"]
+            if key not in self.state[0]:
+                for buf in self.state:
+                    buf[key] = {part: t.new_zeros(
+                        (t.shape[0], self.max_batch) + tuple(t.shape[2:]))
+                        for part, t in src.items()}
+            for part, t in self.state[self.cur][key].items():
+                t[:, row] = src[part][:, 0]
+
+    def row_state(self, rid: int) -> dict:
+        """A copy of a resident's non-attention state, in the tree a
+        prefill hands on and ``insert`` takes: {layer: {"self": {part:
+        (nb, 1, ...)}}} (empty without such layers)."""
+        row = self.meta[rid].row
+        return {key: {"self": {part: t[:, row:row + 1].clone()
+                               for part, t in ent.items()}}
+                for key, ent in self.state[self.cur].items()}
 
     def evict(self, rid: int) -> _DecodeMeta:
-        """Drop a request (finished or preempted): decrement its block
-        references — only blocks with no surviving prefix-sharing sibling
-        return to the free list — and hand the meta back for the engine's
-        shared-capacity accounting."""
+        """Drop a request (finished or preempted): zero its state row,
+        decrement its block references — only blocks with no surviving
+        prefix-sharing sibling return to the free list — and hand the
+        meta back for the engine's shared-capacity accounting."""
         m = self.meta.pop(rid)
         self.slots[m.row] = None
-        self.aux.pop(rid, None)
+        for ent in self.state[self.cur].values():
+            for t in ent.values():
+                t[:, m.row].zero_()
         self.blocks.release(rid)
         return m
 
     # -------------------------------------------------------------- batch
-    def block_table(self, active: List[int]):
-        """(max_batch, max_blocks) physical page table sized to the longest
-        *live allocation* (not max_seq); inactive rows point at the scratch
-        page so their writes can never corrupt live data.  On a sharded
-        pool the global striped ids are converted to the per-shard local
-        tables (kv_shards, max_batch, npg_local) the split-KV decode
-        island consumes — striped over the pool's LIVE width
+    def block_table(self, active: List[int],
+                    width: Optional[int] = None) -> np.ndarray:
+        """(max_batch, width) physical page table, by default as wide as
+        the longest *live allocation* (not max_seq); inactive rows and the
+        columns past an allocation point at the scratch page so their
+        writes can never corrupt live data.  On a sharded pool the global
+        striped ids are converted to the per-shard local tables
+        (kv_shards, max_batch, npg_local) the split-KV decode island
+        consumes — striped over the pool's LIVE width
         (``BlockManager.active_shards``) but always with the full physical
         row count (idle shards get all-scratch rows)."""
         from repro_torch.serving.cache_manager import shard_block_table
-        maxb = max(len(self.meta[r].blocks) for r in active)
-        bt = np.full((self.max_batch, maxb), self.kv.scratch_block, np.int32)
+        if width is None:
+            width = max(len(self.meta[r].blocks) for r in active)
+        bt = np.full((self.max_batch, width), self.kv.scratch_block,
+                     np.int32)
         for r in active:
             m = self.meta[r]
             bt[m.row, :len(m.blocks)] = m.blocks
@@ -297,49 +325,80 @@ class PagedDecodeState:
             bt = shard_block_table(bt, self.blocks.active_shards,
                                    self.blocks.blocks_per_shard,
                                    n_slots=self.kv_shards)
-        return torch.as_tensor(bt, device=self.kv.device)
+        return bt
 
-    def build_caches(self, active: List[int], bt) -> dict:
+    def tick_inputs(self, active: List[int]) -> tuple:
+        """The tick's tokens (B, 1), cache lengths (B,) and block table on
+        the device: the static buffers of ``graphs``, the table at its
+        width from ``table_width`` (None without attention layers), where
+        the tick can be captured; fresh tensors otherwise."""
+        B = self.max_batch
+        toks = np.zeros((B, 1), np.int32)
+        clen = np.zeros((B,), np.int32)
+        for r in active:
+            m = self.meta[r]
+            toks[m.row, 0] = m.last_token
+            clen[m.row] = m.cache_len
+        if self.graphs is None:
+            dev = self.kv.device
+            return (torch.as_tensor(toks, device=dev),
+                    torch.as_tensor(clen, device=dev),
+                    torch.as_tensor(self.block_table(active), device=dev))
+        table = None
+        if self.kv.attn_layers:
+            table = self.block_table(active, table_width(
+                max(len(self.meta[r].blocks) for r in active)))
+        return self.graphs.stage(toks, clen, table)
+
+    def build_caches(self, bt) -> dict:
         """Assemble the decode-step cache tree: attention layers get the
         physical pools plus the block table (broadcast over the layer-scan
-        axis) — consumed natively, never gathered dense — and per-request
-        aux rows are stacked for everything else."""
+        axis) — consumed natively, never gathered dense — and the other
+        layers the current state buffer, with the spare one as ``"next"``
+        for the new state."""
         caches = {}
         bt_b = None
         for i, spec in enumerate(self.cfg.pattern):
             key = str(i)
-            ent = {}
             if spec.mixer == "attn":
                 if bt_b is None:
                     bt_b = bt[None].expand(
                         (self.cfg.n_blocks,) + tuple(bt.shape))
                 p = self.kv.pools[key]
-                ent["self"] = {"k": p["k"], "v": p["v"], "block_table": bt_b}
+                caches[key] = {"self": {"k": p["k"], "v": p["v"],
+                                        "block_table": bt_b}}
             else:
-                ent["self"] = self._stack_rows(active, key, "self")
-            if any("cross" in self.aux[r].get(key, {}) for r in active):
-                ent["cross"] = self._stack_rows(active, key, "cross")
-            caches[key] = ent
+                cur, nxt = self.state[self.cur], self.state[1 - self.cur]
+                caches[key] = {"self": {**cur[key], "next": nxt[key]}}
         return caches
-
-    def _stack_rows(self, active: List[int], key: str, part: str):
-        by_row = {self.meta[r].row: self.aux[r][key][part] for r in active}
-        template = _tree_map(torch.zeros_like, next(iter(by_row.values())))
-        rows = [by_row.get(i, template) for i in range(self.max_batch)]
-        return _tree_map(lambda *xs: torch.cat(xs, dim=1), *rows)
 
     def absorb(self, new_caches: dict, active: List[int]) -> None:
         """Fold one decode step's outputs back: adopt the updated pools
-        (the model already scattered each new token's K/V into its page)
-        and re-slice updated aux state per request."""
+        (the model already scattered each new token's K/V into its page),
+        make the buffer the step wrote its new state into the current one,
+        and zero its rows that were idle in the step."""
         self.kv.adopt(new_caches)
-        for r in active:
-            row = self.meta[r].row
-            for key, ent in self.aux[r].items():
-                if "self" in ent:
-                    ent["self"] = _tree_map(
-                        lambda a: a[:, row:row + 1],
-                        new_caches[key]["self"])
+        if not self.state[0]:
+            return
+        spare = self.state[1 - self.cur]
+        for key, ent in spare.items():
+            got = new_caches[key]["self"]
+            if any(got[part] is not t for part, t in ent.items()):
+                raise RuntimeError("decode returned a fresh state tensor; "
+                                   "the new state must be written into the "
+                                   "spare buffer")
+        self.cur = 1 - self.cur
+        live = {self.meta[r].row for r in active}
+        idle = [i for i in range(self.max_batch) if i not in live]
+        if not idle:
+            return
+        idx = torch.as_tensor(idle, dtype=torch.long)
+        dev = torch.device(self.kv.device)
+        if dev.type == "cuda":
+            idx = idx.pin_memory().to(dev, non_blocking=True)
+        for ent in spare.values():
+            for t in ent.values():
+                t.index_fill_(1, idx.to(t.device), 0)
 
 
 class ServingEngine(Simulator):
@@ -473,6 +532,11 @@ class ServingEngine(Simulator):
                                          n_backends=spec.backends_per_decode,
                                          bandwidth=spec.transfer_bw, ctx=ctx)
                         for _ in range(spec.n_decode)]
+        # decode ticks replay CUDA graphs where the layout can be captured
+        # (serving/tick_graph.py); every other tick runs eagerly
+        for d in self.dstates:
+            if graph_eligible(cfg, ctx, d.kv_shards):
+                d.graphs = TickGraphs(max_batch, d.kv.device, self.metrics)
         # engine-wide prefill page pool: chunks scatter their KV here as
         # they execute; admission copies the non-shared pages into the
         # decode instance's pool and releases these
@@ -1354,7 +1418,7 @@ class ServingEngine(Simulator):
             hblocks = self.host.alloc(n)
         assert hblocks is not None, "host pool accounting violated"
         self.host.store(hblocks, d.kv.read_blocks(m.blocks))
-        aux = d.aux.get(rid)
+        aux = d.row_state(rid)
         self._suppress_demote = True
         try:
             meta = d.evict(rid)
@@ -1794,6 +1858,34 @@ class ServingEngine(Simulator):
     def _tick_mode(self, did: int) -> str:
         return "fused" if self._fused_tick == did else "standalone"
 
+    def _decode_forward(self, d: PagedDecodeState, active: List[int],
+                        toks, clen, bt, fused: bool) -> torch.Tensor:
+        """One tick's forward, its argmax and ``absorb``: the next token of
+        every row (B,) on the device.  Replays the instance's captured
+        tick where it has ``graphs``, outside fused steps and while this
+        module's ``forward`` is the model's (a wrapped forward runs
+        eagerly); every tick with live rows observes
+        ``tick_graph/replayed`` (1 replayed, 0 eager)."""
+        B = d.max_batch
+
+        def step():
+            pos = (clen[None, :, None].expand(3, B, 1)
+                   if self.cfg.rope_type == "mrope" else clen[:, None])
+            logits, _, new_caches = forward(
+                self.params, self.cfg, self.ctx, toks, pos, "decode",
+                caches=d.build_caches(bt), cache_len=clen)
+            return (torch.argmax(logits[:, 0, :self.cfg.vocab_size], dim=-1),
+                    new_caches)
+
+        if d.graphs is None or fused or forward is not _MODEL_FORWARD:
+            (nxt, new_caches), replayed = step(), False
+        else:
+            key = (None if bt is None else bt.shape[1], d.cur)
+            nxt, new_caches, replayed = d.graphs.run(key, step)
+        d.absorb(new_caches, active)
+        self.metrics.hist("tick_graph/replayed").observe(float(replayed))
+        return nxt
+
     def _on_decode_tick(self, now: float, did: int) -> None:
         ph = self.profiler.phases("tick")
         d = self.dstates[did]
@@ -1837,27 +1929,11 @@ class ServingEngine(Simulator):
                 inst.standalone_ticks += 1
                 inst.standalone_tokens += len(active)
         if active:
-            B = d.max_batch
-            toks = np.zeros((B, 1), np.int32)
-            clen = np.zeros((B,), np.int32)
-            for r in active:
-                m = d.meta[r]
-                toks[m.row, 0] = m.last_token
-                clen[m.row] = m.cache_len
-            toks = torch.as_tensor(toks, device=self.ctx.device)
-            clen = torch.as_tensor(clen, device=self.ctx.device)
-            pos = (clen[None, :, None].expand(3, B, 1)
-                   if self.cfg.rope_type == "mrope" else clen[:, None])
-            bt = d.block_table(active)
-            caches = d.build_caches(active, bt)
+            toks, clen, bt = d.tick_inputs(active)
             ph.mark("prep")
             with self.profiler.op("fused_tick" if fused
                                   else "decode_tick"):
-                logits, _, new_caches = forward(
-                    self.params, self.cfg, self.ctx, toks, pos, "decode",
-                    caches=caches, cache_len=clen)
-                d.absorb(new_caches, active)
-            nxt = torch.argmax(logits[:, 0, :self.cfg.vocab_size], dim=-1)
+                nxt = self._decode_forward(d, active, toks, clen, bt, fused)
             ph.mark("launch")
             nxt = nxt.cpu().numpy()
             ph.mark("wait")

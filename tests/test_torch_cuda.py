@@ -1348,3 +1348,95 @@ def test_op_profiler_does_not_wait_on_the_card():
     assert not prof.pending
     h = m.hists["op_device_us/sleep"]
     assert h.count == 1 and h.vmin >= 40e3
+
+
+# ------------------------------------------------- the captured decode tick
+def _tick_graph_run(arch: str, dev, preempt=(), eager: bool = False):
+    """Six requests through one decode instance of reduced ``arch``
+    (pages of 8 tokens, 4 rows, a host tier that takes swaps): admissions
+    and evictions mid-run, tables that grow across width buckets, and the
+    decode preemptions ``preempt`` ((rid, t) on the event clock) swapped
+    out and back in.  ``eager`` runs every tick uncaptured, as a wrapped
+    forward does.  Returns the drained engine, the pools' addresses
+    before the run and the K1 launches it made."""
+    import numpy as np
+
+    import repro_torch.serving.engine as E
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.latency_model import table1_model
+    from repro_torch.kernels.flash_decode import paged_flash_decode
+    from repro_torch.models.params import init_params
+    from repro_torch.models.sharding import make_context
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.simulator import ClusterSpec, make_policy
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, seed=0, device=dev)
+    spec = ClusterSpec(n_prefill=4, n_decode=1, sp_candidates=(1, 2),
+                       cache_slots=4 * 512)
+    eng = E.ServingEngine(cfg, params, spec,
+                          make_policy("tetris", table1_model(), spec),
+                          ctx=make_context(dev), max_batch=4, max_seq=512,
+                          block_size=8, preempt_policy="swap",
+                          host_pool_blocks=512)
+    rng = np.random.default_rng(0)
+    for rid, n in enumerate((40, 100, 180, 60, 230, 90)):
+        eng.submit(Request(rid=rid, arrival=0.05 * rid, prompt_len=n,
+                           output_len=24),
+                   rng.integers(0, cfg.vocab_size, n).astype(np.int32))
+    for rid, t in preempt:
+        eng.preempt(rid, at=t)
+    ptrs = [p[part].data_ptr() for p in eng.dstates[0].kv.pools.values()
+            for part in ("k", "v")]
+    fwd = E.forward
+    if eager:
+        E.forward = lambda *a, **k: fwd(*a, **k)
+    k1 = paged_flash_decode.launches
+    try:
+        eng.serve()
+    finally:
+        E.forward = fwd
+    torch.cuda.synchronize()
+    return eng, ptrs, paged_flash_decode.launches - k1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-1.3b", "qwen2-moe-a2.7b",
+                                  "qwen2-vl-72b", "jamba-1.5-large-398b"])
+def test_tick_graph_tokens_match_eager_ticks_on_card(arch):
+    """The captured tick against the same ticks run eagerly, on reduced
+    Yi-9B (paged GQA, K1), Mamba-2 (the batched state buffer), an MoE
+    (routing over every row), Qwen2-VL (M-RoPE positions) and Jamba (all
+    three): the greedy tokens of every request are identical through
+    admissions, evictions, tables that cross width buckets and, with a
+    Mamba layer, a swap-out and swap-in of a row; a graph is captured
+    once per width and state buffer at most, every tick after the
+    instance's first replays one, the pools stay where they were, and
+    K1 launches as often."""
+    dev = _card()
+    calm, _, _ = _tick_graph_run(arch, dev)
+    d = calm.dstates[0]
+    state, attn = bool(d.state[0]), bool(d.kv.attn_layers)
+    preempt = ()
+    if state:
+        tt = calm.reqs[2].token_times
+        preempt = ((2, 0.5 * (tt[5] + tt[6])),)
+    got, ptrs, k1 = _tick_graph_run(arch, dev, preempt)
+    want, _, k1_eager = _tick_graph_run(arch, dev, preempt, eager=True)
+    assert got.outputs == want.outputs
+    assert all(len(v) > 24 for v in got.outputs.values())
+    d = got.dstates[0]
+    widths = len(d.graphs._tables) if attn else 1
+    assert d.graphs.captures <= widths * (2 if state else 1)
+    if attn:
+        assert widths >= 2
+    if state:
+        assert got.swap_stats["swap_outs"] >= 1
+        assert got.swap_stats["swap_ins"] >= 1
+    assert got.metrics.counters["tick/graph_captures"].value == \
+        d.graphs.captures
+    assert ptrs == [p[part].data_ptr() for p in d.kv.pools.values()
+                    for part in ("k", "v")]
+    h = got.metrics.hists["tick_graph/replayed"]
+    assert h.count > 20 and h.total == h.count - 1
+    assert want.metrics.hists["tick_graph/replayed"].total == 0
+    assert k1 == k1_eager

@@ -53,8 +53,8 @@ def engines(reduced_params_cache):
                   blocks, *args, **kw):
         insert(self, row, rid, aux_history, cache_len, last_token, blocks,
                *args, **kw)
-        held[rid] = (len(blocks), {k: sorted(v["self"])
-                                   for k, v in self.aux[rid].items()})
+        held[rid] = (len(blocks), {k: sorted(v["self"]) for k, v in
+                                   self.row_state(rid).items()})
 
     PagedDecodeState.insert = recording
     try:
